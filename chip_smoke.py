@@ -10,16 +10,29 @@ Phases, each failing the run (non-zero exit) if it fails:
  2. build: every kernel of ``src/repro_torch/kernels/csrc`` with nvcc
     into ``build/repro_torch`` (timed);
  3. kernels: each CUDA kernel against its plain PyTorch version on the
-    card, with tolerance 0 (min, mask and one f32 add are exact), at the
-    main path's shapes and on edge cases; median times by CUDA events;
- 4. main path at full size through ``repro_torch.sssp.Solver``:
+    card at the main paths' shapes, the SSSP kernels on edge cases too,
+    with tolerance 0 for the SSSP kernels (min, mask and one f32 add are
+    exact), the reference's own for the CIN (3e-4) and f32 attention
+    (2e-3), and two bf16 steps for bf16 attention (rtol 1.6e-2, atol
+    4e-3, inside the reference's 2e-2); median times by CUDA events,
+    device times by torch.profiler;
+ 4. SSSP main path at full size through ``repro_torch.sssp.Solver``:
     grid(side=1024) via "auto" (must route to frontier), gnp(2^20, 8) via
     "auto" (must route to segment) and via "pallas"; ``solve`` and an
     8-source ``solve_batch`` each, with the kernels' launch counts read
     around each run; then distances against scipy's float64 Dijkstra,
     the backends bitwise against each other, and the card bitwise
     against the port's own CPU solve on 2^14-vertex graphs of the seven
-    generator families.
+    generator families;
+ 5. xDeepFM scoring at the paper's FULL config (18.9 M table rows)
+    through ``repro_torch.models.xdeepfm.XDeepFM``: the ``serve_p99``
+    (B = 512), ``serve_bulk`` (B = 262,144) and ``retrieval_cand`` (1
+    query, 10^6 candidates) workloads, timed, 3 CIN launches a forward,
+    checked against the port's CPU forward and against smaller batches,
+    and each CIN layer of the forwards against its plain version in
+    float64;
+ 6. attention entry point: one ``ops.flash_attention`` call at a
+    qwen3-32b layer's shape, its launches counted.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
@@ -41,12 +54,21 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 on the tensor cores
 REPS = 25
 DEVICE = "cuda"
 GRID_SIDE = 1024              # grid(side=1024): n = 2^20, 4.2 M edges
 GNP_N = 1 << 20               # gnp(2^20, avg_deg=8): 8.4 M edges
 FRONTIER_CAP = 4096           # the Solver's default cap at n = 2^20
 PARITY_N = 1 << 14            # card vs CPU parity graphs
+CIN_SHAPE = dict(B=512, M=39, D=10, K=200)    # serve_p99, paper widths
+# one qwen3-32b attention layer: 64 query heads, 8 KV heads, head_dim 128
+ATTN_SHAPE = dict(B=1, H=64, H_KV=8, S=4096, d=128)
+# attention against its plain version: the reference's f32 tolerance; in
+# bf16 two bf16 steps (the outputs differ only in rounding of the f32
+# result), inside the reference's 2e-2
+ATTN_TOL = {"float32": dict(rtol=2e-3, atol=2e-3),
+            "bfloat16": dict(rtol=1.6e-2, atol=4e-3)}
 
 
 def log(*a):
@@ -122,9 +144,9 @@ def max_abs_err(torch, got, want) -> float:
     return float((g[fin] - w[fin]).abs().max()) if fin.any() else 0.0
 
 
-def bound(nbytes: float, nops: float):
+def bound(nbytes: float, nops: float, ops_per_s: float = FP32_OPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / FP32_OPS_PER_S * 1e3
+    t_ops = nops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -330,6 +352,126 @@ def kernel_phase(torch, pt):
          "n=1001, empty masks")
     torch.cuda.synchronize()
     return rec
+
+
+def attn_inputs(torch, dtype, seed: int = 0):
+    """q [B, 64, S, 128] and k, v drawn for 8 KV heads and repeated to 64,
+    as a grouped-query caller hands them to ``ops.flash_attention``."""
+    a = ATTN_SHAPE
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    rep = a["H"] // a["H_KV"]
+
+    def draw(heads):
+        return torch.randn((a["B"], heads, a["S"], a["d"]), generator=g,
+                           device=DEVICE).to(dtype)
+    q = draw(a["H"])
+    k = draw(a["H_KV"]).repeat_interleave(rep, dim=1)
+    v = draw(a["H_KV"]).repeat_interleave(rep, dim=1)
+    return q, k, v
+
+
+def model_kernel_phase(torch, rec):
+    """B5 and B6 against their plain versions at the main paths' shapes.
+
+    B5 is held against its plain version evaluated in float64 (rounded to
+    float32): in float32 the plain version's cuBLAS GEMM sums the H*M =
+    7,800 products of a layer-2 output in one long sequence and strays
+    further from the exact value than the kernel does; both errors are
+    printed."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.cin import cin_layer
+    from repro_torch.kernels.flash_attn import flash_attention
+
+    def held(name, got, want, rtol, atol, what):
+        err = max_abs_err(torch, got.float(), want.float())
+        ok = torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol)
+        log(f"  {name:16s} {what:44s} max_abs_err={err:.3e} "
+            f"(rtol {rtol:g}, atol {atol:g}: {'ok' if ok else 'FAILED'})")
+        check(ok, f"{name} disagrees with its plain version ({what})")
+        r = rec.setdefault(name, {"max_abs_err": 0.0})
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+
+    def timed(name, what, kern, plain, lib, lib_name, nbytes, nops,
+              ops_per_s=FP32_OPS_PER_S, peak_name="f32"):
+        ms = time_ms(torch, kern)
+        pl = time_ms(torch, plain, reps=5, warmup=1)
+        lb = time_ms(torch, lib, reps=5, warmup=1)
+        dt = dict(kernel=device_ms(torch, kern),
+                  plain=device_ms(torch, plain, reps=5),
+                  library=device_ms(torch, lib, reps=5))
+        b_ms, b_by = bound(nbytes, nops, ops_per_s)
+        log(f"  {name} {what}: kernel {ms:.4f} ms, plain {pl:.4f} ms, "
+            f"{lib_name} {lb:.4f} ms (events); device {dt['kernel']:.4f} / "
+            f"{dt['plain']:.4f} / {dt['library']:.4f} ms; bound "
+            f"{b_ms:.4f} ms ({b_by}, {peak_name} peak); "
+            f"{nops / ms / 1e9:.2f} TFLOP/s")
+        rec[name].update(ms=ms, plain_ms=pl, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=lb)
+
+    # --- B5 at serve_p99, CIN layers 1 (H = 39) and 2 (H = 200) ---------
+    c = CIN_SHAPE
+    g = torch.Generator(device=DEVICE).manual_seed(5)
+    for H in (c["M"], 200):
+        def draw(*shape):
+            return torch.randn(shape, generator=g, device=DEVICE)
+        xk, x0 = draw(c["B"], H, c["D"]), draw(c["B"], c["M"], c["D"])
+        w = draw(c["K"], H, c["M"])
+        what = f"B={c['B']} H={H} M={c['M']} D={c['D']} K={c['K']}"
+        got = cin_layer(xk, x0, w)
+        exact = ref.cin_layer_ref(xk.double(), x0.double(), w.double())
+        plain32 = ref.cin_layer_ref(xk, x0, w)
+        log(f"  cin_layer plain f32 vs f64 {what}: max_abs_err "
+            f"{max_abs_err(torch, plain32, exact.float()):.3e}")
+        held("cin_layer", got, exact.float(), 3e-4, 3e-4, what + " vs f64")
+        nops = 2.0 * c["K"] * H * c["M"] * c["D"] * c["B"]
+        nbytes = 4 * (c["B"] * H * c["D"] + c["B"] * c["M"] * c["D"]
+                      + c["K"] * H * c["M"] + c["B"] * c["K"] * c["D"])
+        timed("cin_layer", what,
+              lambda: cin_layer(xk, x0, w),
+              lambda: ref.cin_layer_ref(xk, x0, w),
+              lambda: torch.einsum("khm,bhd,bmd->bkd", w, xk, x0),
+              "einsum", nbytes, nops)
+    for B, H, M, D, K in ((37, 7, 5, 3, 65), (1, 200, 39, 10, 200)):
+        xk = torch.randn((B, H, D), generator=g, device=DEVICE)
+        x0 = torch.randn((B, M, D), generator=g, device=DEVICE)
+        w = torch.randn((K, H, M), generator=g, device=DEVICE)
+        held("cin_layer", cin_layer(xk, x0, w), ref.cin_layer_ref(
+            xk.double(), x0.double(), w.double()).float(), 3e-4, 3e-4,
+            f"edge B={B} H={H} M={M} D={D} K={K} vs f64")
+
+    # --- B6 at one qwen3-32b attention layer, bf16 and f32 ---------------
+    a = ATTN_SHAPE
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    nops = 2.0 * a["S"] ** 2 * a["d"] * a["H"] * a["B"]      # causal
+    for dtype, peak, peak_name in (
+            (torch.float32, FP32_OPS_PER_S, "f32"),
+            (torch.bfloat16, BF16_OPS_PER_S, "dense bf16")):
+        q, k, v = attn_inputs(torch, dtype)
+        what = (f"{str(dtype)[6:]} B={a['B']} H={a['H']} S={a['S']} "
+                f"d={a['d']} causal")
+        held("flash_attention", flash_attention(q, k, v, causal=True),
+             ref.flash_attention_ref(q, k, v, causal=True),
+             **ATTN_TOL[str(dtype)[6:]], what=what)
+        nbytes = 4 * q.numel() * q.element_size()
+        timed("flash_attention", what,
+              lambda: flash_attention(q, k, v, causal=True),
+              lambda: ref.flash_attention_ref(q, k, v, causal=True),
+              lambda: sdpa(q, k, v, is_causal=True), "sdpa", nbytes, nops,
+              peak, peak_name)
+        del q, k, v
+    for dtype in (torch.float32, torch.bfloat16):
+        for (BH, S, d, causal) in ((3, 256, 64, False), (2, 128, 32, True),
+                                   (2, 384, 100, True)):
+            q, k, v = (torch.randn((1, BH, S, d), generator=g,
+                                   device=DEVICE).to(dtype)
+                       for _ in range(3))
+            held("flash_attention", flash_attention(q, k, v, causal=causal),
+                 ref.flash_attention_ref(q, k, v, causal=causal),
+                 **ATTN_TOL[str(dtype)[6:]],
+                 what=f"edge {str(dtype)[6:]} H={BH} S={S} d={d} "
+                      f"causal={causal}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -564,6 +706,194 @@ def profile_phase(torch, pt, rounds: int = 400):
                     f"{e.key[:90]}")
 
 
+# ---------------------------------------------------------------------------
+# phases 5 and 6: xDeepFM scoring and the attention entry point
+# ---------------------------------------------------------------------------
+
+def counted(torch, fn):
+    """``fn()`` once with every launch count set to 0 just before and read
+    just after: (its result, the counts)."""
+    from repro_torch.kernels import _build
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, _build.launch_counts()
+
+
+def forward_stages(torch, model, idx, reps, spans):
+    """A forward's stages on the same batch: the median event times of the
+    embedding bag and of each CIN layer (the rest of the forward is the
+    linear term, the DNN and the output products), and each CIN layer's
+    output, on the forward's own x_0 and x_k, held against the plain
+    version in float64 on the rows of ``spans`` ([lo, hi) pairs).
+
+    The CIN check is relative to the layer's largest exact output (at
+    most 3e-4, the reference's CIN tolerance): at the init scales a
+    layer-2 or layer-3 output moves a logit by far less than the logits'
+    tolerances, so those checks cannot see these layers.  Returns the
+    times and each layer's relative error."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models.xdeepfm import embedding_bag
+    p = model.params()
+    parts = {"embedding_bag": time_ms(
+        torch, lambda: embedding_bag(p["table"], idx), reps=reps, warmup=1)}
+    x0 = embedding_bag(p["table"], idx)
+    xk = x0
+    rel = []
+    for i, w in enumerate(p["cin"]):
+        parts[f"cin_layer {i + 1} (H={xk.shape[1]})"] = time_ms(
+            torch, lambda: ops.cin_layer(xk, x0, w), reps=reps, warmup=1)
+        out = ops.cin_layer(xk, x0, w)
+        worst = 0.0
+        for lo, hi in spans:
+            exact = ref.cin_layer_ref(xk[lo:hi].double(), x0[lo:hi].double(),
+                                      w.double())
+            worst = max(worst, float((out[lo:hi].double() - exact).abs().max()
+                                     / exact.abs().max()))
+            del exact
+        check(worst <= 3e-4, f"cin_layer {i + 1} of the forward: relative "
+                             f"error {worst:.3e} against float64 > 3e-4")
+        rel.append(worst)
+        xk = out
+    return parts, rel
+
+
+def xdeepfm_phase(torch):
+    """The paper's FULL xDeepFM on the card: serve_p99, serve_bulk and
+    retrieval_cand through ``XDeepFM``, each forward counted (3 CIN
+    launches), timed by CUDA events and checked.  Returns the summed
+    launch counts of the counted runs."""
+    from repro_torch.configs import xdeepfm as xcfg
+    from repro_torch.data.synthetic import RecsysStream
+    from repro_torch.models.xdeepfm import XDeepFM
+    cfg = xcfg.FULL
+    dev = torch.device(DEVICE)
+    launches = {}
+
+    def run(fn, what, forwards=1):
+        out, lc = counted(torch, fn)
+        check(lc["cin_layer"] == 3 * forwards,
+              f"xdeepfm {what}: {lc['cin_layer']} cin_layer launches, "
+              f"want {3 * forwards}")
+        check(bool(torch.isfinite(out).all()), f"xdeepfm {what}: "
+                                               "non-finite output")
+        for key, val in lc.items():
+            launches[key] = launches.get(key, 0) + val
+        return out
+
+    def batch(B, seed=0):
+        s = RecsysStream(cfg.sizes(), cfg.offsets, batch=B,
+                         values=xcfg.VALUES_PER_FIELD, seed=seed)
+        return torch.from_numpy(s.next_batch()["indices"]).to(dev)
+
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model = XDeepFM.init(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    n_par = sum(p.numel() for p in model.parameters())
+    log(f"[xdeepfm] FULL: {cfg.n_fields} fields, embed {cfg.embed_dim}, "
+        f"CIN {cfg.cin_layers}, MLP {cfg.mlp_dims}, {cfg.total_rows:,} "
+        f"table rows, {n_par:,} parameters ({n_par * 4 / 2 ** 30:.3f} GiB)"
+        f", init {time.perf_counter() - t0:.2f} s")
+    out = {}
+    for shape in ("serve_p99", "serve_bulk"):
+        B = xcfg.SHAPES[shape]["batch"]
+        t0 = time.perf_counter()
+        idx = batch(B)
+        t_data = time.perf_counter() - t0
+        torch.cuda.reset_peak_memory_stats()
+        logits = run(lambda: model(idx), shape)
+        check(logits.shape == (B,), f"xdeepfm {shape}: logits "
+                                    f"{tuple(logits.shape)}")
+        reps = 25 if B <= 4096 else 5
+        ms = time_ms(torch, lambda: model(idx), reps=reps, warmup=1)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        flops = xcfg.cell_flops(cfg, B)
+        log(f"  {shape} B={B}: {ms:.4f} ms a forward (median of {reps}, "
+            f"events), {B / ms * 1e3:,.0f} rows/s, "
+            f"{flops / ms / 1e9:.2f} TFLOP/s of model FLOPs, peak "
+            f"{peak:.3f} GiB, batch drawn in {t_data:.2f} s (host)")
+        spans = [(0, B)] if B <= 4096 else [(0, 4096), (B - 4096, B)]
+        parts, rel = forward_stages(torch, model, idx,
+                                    min(reps, 3 + reps // 5), spans)
+        log("    stages (events): " + ", ".join(
+            f"{k} {v:.4f} ms ({v / ms:.1%})" for k, v in parts.items())
+            + f"; the rest {ms - sum(parts.values()):.4f} ms")
+        log("    CIN layers vs float64 on rows " + ", ".join(
+            f"{lo}..{hi - 1}" for lo, hi in spans) + ": max |err| / max "
+            "|exact| " + ", ".join(f"{e:.3e}" for e in rel) + " (<= 3e-4)")
+        out[shape] = dict(idx=idx, logits=logits, ms=ms, peak_gib=peak)
+
+    # rows are independent: the bulk forward's first rows equal a forward
+    # of those rows alone
+    head = out["serve_bulk"]["idx"][:4096].contiguous()
+    small = run(lambda: model(head), "serve_bulk head")
+    err = max_abs_err(torch, out["serve_bulk"]["logits"][:4096], small)
+    log(f"  serve_bulk rows 0..4095 vs a B=4096 forward: max_abs_err "
+        f"{err:.3e} (rtol = atol = 1e-4)")
+    check(torch.allclose(out["serve_bulk"]["logits"][:4096], small,
+                         rtol=1e-4, atol=1e-4),
+          "xdeepfm: bulk rows differ from a forward of the same rows")
+    del out["serve_bulk"]
+    torch.cuda.empty_cache()
+
+    # retrieval_cand: one query against 10^6 candidate embeddings
+    n_cand = xcfg.SHAPES["retrieval_cand"]["n_cand"]
+    query = batch(1)
+    cand = torch.randn((n_cand, cfg.embed_dim), generator=gen, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    scores, _ = counted(torch, lambda: model.retrieval_scores(query, cand))
+    check(scores.shape == (n_cand,) and bool(torch.isfinite(scores).all()),
+          "xdeepfm retrieval: bad scores")
+    qv = model.table[query[0].clamp(min=0).long()]
+    qv = (qv * (query[0] >= 0)[..., None]).sum(1).double().mean(0)
+    want = cand.double() @ qv
+    check(torch.allclose(scores.double(), want, rtol=1e-4, atol=1e-7),
+          "xdeepfm retrieval: scores differ from a float64 product")
+    ms = time_ms(torch, lambda: model.retrieval_scores(query, cand))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  retrieval_cand 1 x {n_cand:,}: {ms:.4f} ms (median of {REPS}, "
+        f"events), peak {peak:.3f} GiB, vs float64 product max_abs_err "
+        f"{max_abs_err(torch, scores.double(), want):.3e}")
+
+    # the card's serve_p99 logits against the port's CPU forward with the
+    # same weights and batch (the plain versions)
+    p99 = out["serve_p99"]
+    model.to("cpu")
+    cpu = model(p99["idx"].cpu())
+    err = max_abs_err(torch, p99["logits"].cpu(), cpu)
+    log(f"  serve_p99 card vs CPU forward: max_abs_err {err:.3e} "
+        f"(rtol = atol = 1e-4)")
+    check(torch.allclose(p99["logits"].cpu(), cpu, rtol=1e-4, atol=1e-4),
+          "xdeepfm: the card's serve_p99 logits differ from the CPU's")
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def attention_entry_phase(torch):
+    """One ``ops.flash_attention`` call at a qwen3-32b layer's shape in
+    bf16, K/V repeated from 8 heads; its launch counts."""
+    from repro_torch.kernels import ops, ref
+    q, k, v = attn_inputs(torch, torch.bfloat16, seed=1)
+    o, lc = counted(torch, lambda: ops.flash_attention(q, k, v,
+                                                       causal=True))
+    check(lc["flash_attention"] == 1, "ops.flash_attention launched "
+                                      f"{lc['flash_attention']} kernels")
+    check(o.shape == q.shape and o.dtype == q.dtype
+          and bool(torch.isfinite(o).all()), "flash_attention: bad output")
+    want = ref.flash_attention_ref(q, k, v, causal=True)
+    err = max_abs_err(torch, o.float(), want.float())
+    tol = ATTN_TOL["bfloat16"]
+    log(f"  ops.flash_attention bf16 {tuple(q.shape)} causal: launches "
+        f"{lc['flash_attention']}, vs plain max_abs_err {err:.3e} "
+        f"(rtol {tol['rtol']:g}, atol {tol['atol']:g})")
+    check(torch.allclose(o.float(), want.float(), **tol),
+          "ops.flash_attention disagrees with the plain version")
+    return lc
+
+
 KERNELS = {
     "frontier_scatter_min": (
         "src/repro_torch/kernels/csrc/frontier_relax.cu",
@@ -575,6 +905,10 @@ KERNELS = {
                   "src/repro/kernels/relax.py:44"),
     "masked_min": ("src/repro_torch/kernels/csrc/segment_min.cu",
                    "src/repro/kernels/segment_min.py:33"),
+    "cin_layer": ("src/repro_torch/kernels/csrc/cin.cu",
+                  "src/repro/kernels/cin.py:42"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attn.cu",
+                        "src/repro/kernels/flash_attn.py:72"),
 }
 
 
@@ -612,22 +946,29 @@ def main() -> int:
     for fn in _build.SIGNATURES:
         _build.function(fn)
 
-    log("[kernels] each CUDA kernel vs its plain version, tolerance 0")
+    log("[kernels] each SSSP kernel vs its plain version, tolerance 0")
     rec = kernel_phase(torch, pt)
+    log("[kernels] cin_layer and flash_attention vs their plain versions")
+    model_kernel_phase(torch, rec)
     # launch counts: set to 0 right before each main-path run and read
-    # right after (solve_timed)
+    # right after (solve_timed, counted)
     runs = main_path(torch, pt)
     log("[parity] card vs the port's CPU solve, 2^14 vertices")
     cpu_parity_phase(torch, pt)
+    log("[xdeepfm] scoring at the FULL config")
+    xd_launch = xdeepfm_phase(torch)
+    log("[attention] the ops.flash_attention entry point")
+    attn_launch = attention_entry_phase(torch)
     if args.profile:
         log("[profile] torch.profiler over the first rounds of each route")
         profile_phase(torch, pt)
 
     main_launch = {k: 0 for k in KERNELS}
-    for r in runs.values():
-        for kind in ("solve", "solve_batch"):
-            for k, v in r[kind]["launches"].items():
-                main_launch[k] += v
+    launch_runs = [r[kind]["launches"] for r in runs.values()
+                   for kind in ("solve", "solve_batch")]
+    for lc in launch_runs + [xd_launch, attn_launch]:
+        for k, v in lc.items():
+            main_launch[k] += v
     kernels = []
     for name, (source, replaces) in KERNELS.items():
         r = rec[name]

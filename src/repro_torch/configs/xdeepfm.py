@@ -1,0 +1,40 @@
+"""xDeepFM configurations (port of ``repro/configs/xdeepfm.py``).
+
+``FULL`` is the paper's model (arXiv:1803.05170): 39 sparse fields,
+embed_dim 10, CIN 200-200-200, MLP 400-400, over a Criteo-scale
+vocabulary of 18,916,161 rows (a few huge fields and a long tail).
+``SHAPES`` are the reference's cells; the serving port runs
+``serve_p99``, ``serve_bulk`` and ``retrieval_cand``.  The reference's
+XLA lowering of a cell (``build_cell``) has no counterpart here.
+"""
+from repro_torch.models.xdeepfm import XDeepFMConfig
+
+_BIG = (10_000_000, 5_000_000, 2_000_000, 1_000_000, 500_000)
+_TAIL = tuple(int(100_000 / (1 + i)) + 128 for i in range(34))
+
+FULL = XDeepFMConfig(field_sizes=_BIG + _TAIL)
+SMOKE = XDeepFMConfig(
+    n_fields=8, embed_dim=6, cin_layers=(16, 16), mlp_dims=(32,),
+    field_sizes=(128, 96, 64, 64, 32, 32, 16, 16))
+
+SHAPES = {
+    "train_batch": dict(batch=65536, kind="train"),
+    "serve_p99": dict(batch=512, kind="serve"),
+    "serve_bulk": dict(batch=262144, kind="serve"),
+    "retrieval_cand": dict(batch=1, n_cand=1_000_000, kind="retrieval"),
+}
+VALUES_PER_FIELD = 3
+
+
+def cell_flops(cfg: XDeepFMConfig, batch: int) -> float:
+    """Model FLOPs of a forward over ``batch`` rows: the CIN layers
+    (2*K*H*M*D a row each) and the DNN matmuls (the reference's
+    ``_cell_flops``)."""
+    f = 0.0
+    h_prev = cfg.n_fields
+    for h in cfg.cin_layers:
+        f += 2.0 * h * h_prev * cfg.n_fields * cfg.embed_dim
+        h_prev = h
+    dims = [cfg.n_fields * cfg.embed_dim, *cfg.mlp_dims, 1]
+    f += sum(2.0 * a * b for a, b in zip(dims, dims[1:]))
+    return f * batch

@@ -1,10 +1,10 @@
-"""Carry the reference's graph containers across to the port.
+"""Carry the reference's graph containers and weights across to the port.
 
-Each function reads the fields of a reference ``Graph``/``CsrGraph``/
-``EllGraph`` (duck-typed: anything with those attributes, read through
-``np.asarray``) and builds the port's container from the same arrays, so
-both packages can be run on identical inputs.  This is the counterpart
-of carrying weights across.
+Each graph function reads the fields of a reference ``Graph``/
+``CsrGraph``/``EllGraph`` (duck-typed: anything with those attributes,
+read through ``np.asarray``) and builds the port's container from the
+same arrays; ``xdeepfm_params_from_arrays`` does the same for a
+parameter tree.  So both packages can be run on identical inputs.
 """
 from __future__ import annotations
 
@@ -47,3 +47,20 @@ def ell_from_arrays(ell, device=None) -> EllGraph:
         n=int(ell.n), n_pad=int(ell.n_pad), deg_pad=int(ell.deg_pad),
         in_src=_arr(ell.in_src, np.int32, device),
         in_w=_arr(ell.in_w, np.float32, device))
+
+
+def xdeepfm_params_from_arrays(params, device=None) -> dict:
+    """The reference's xDeepFM parameter tree (``table``, ``linear``,
+    ``cin[i]``, ``dnn[(w, b)]``, ``bias``, ``cin_out``; arrays read
+    through ``np.asarray``) as the port's float32 tree on ``device``."""
+    device = resolve_device(device)
+
+    def f32(x):
+        return _arr(x, np.float32, device)
+
+    return {
+        "table": f32(params["table"]), "linear": f32(params["linear"]),
+        "cin": [f32(w) for w in params["cin"]],
+        "dnn": [(f32(w), f32(b)) for w, b in params["dnn"]],
+        "bias": f32(params["bias"]), "cin_out": f32(params["cin_out"]),
+    }

@@ -34,6 +34,9 @@ SIGNATURES = {
                                    (_P, _P, _P, _I, _L, _I, _P)),
     "relax_ell": ("relax", (_P, _P, _P, _P, _P, _I, _I, _I, _P)),
     "masked_min": ("segment_min", (_P, _P, _P, _I, _I, _P)),
+    "cin_layer": ("cin", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    "flash_attention": ("flash_attn",
+                        (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
 }
 SOURCES = tuple(sorted({src for src, _ in SIGNATURES.values()}))
 
@@ -42,6 +45,8 @@ LAUNCHES: dict[str, int] = {
     "frontier_scatter_min_batch": 0,
     "relax_ell": 0,
     "masked_min": 0,
+    "cin_layer": 0,
+    "flash_attention": 0,
 }
 
 _libs: dict[str, ctypes.CDLL] = {}

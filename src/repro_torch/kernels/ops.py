@@ -1,16 +1,20 @@
-"""Vertex-level ops over the graph layouts (port of ``repro/kernels/ops.py``).
+"""Ops over the kernels (port of ``repro/kernels/ops.py``).
 
-Every op takes batch-first ``[B, n]`` vertex tensors (``frontier_relax``
-is the single-lane B1 form).  The CSR/CSC gathers are plain PyTorch; the
-reductions that were Pallas kernels in the reference go through the
-kernel wrappers, which pick the CUDA kernel or the plain version by the
-tensors' device.  There is no ``use_pallas`` switch: the device decides.
+The vertex-level ops take batch-first ``[B, n]`` vertex tensors
+(``frontier_relax`` is the single-lane B1 form).  The CSR/CSC gathers
+are plain PyTorch; the reductions that were Pallas kernels in the
+reference go through the kernel wrappers, which pick the CUDA kernel or
+the plain version by the tensors' device.  There is no ``use_pallas``
+switch: the device decides.  ``cin_layer`` and ``flash_attention`` are
+the model ops (B5, B6).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core.graph import INF, CsrGraph, EllGraph, Graph
+from repro_torch.kernels import cin as _cin
+from repro_torch.kernels import flash_attn as _flash
 from repro_torch.kernels import frontier_relax as _fr
 from repro_torch.kernels import relax as _relax
 from repro_torch.kernels import segment_min as _segmin
@@ -111,3 +115,19 @@ def in_min_at(g: Graph, csr: CsrGraph, x: torch.Tensor | None,
     if src_mask is not None:
         val = torch.where(src_mask[:, uc] & ok[None], val, INF)
     return val.amin(dim=-1)
+
+
+def cin_layer(x_k: torch.Tensor, x_0: torch.Tensor,
+              w: torch.Tensor) -> torch.Tensor:
+    """xDeepFM CIN layer (B5): x_k [B, H, D], x_0 [B, M, D], w [K, H, M]
+    -> float32[B, K, D].  Any B: the kernel needs no batch padding."""
+    return _cin.cin_layer(x_k.contiguous(), x_0.contiguous(),
+                          w.contiguous())
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True) -> torch.Tensor:
+    """Attention on ``[B, H, S, d]`` (B6); K/V repeated to H heads by the
+    caller, ``causal`` only with ``Sq == Sk``."""
+    return _flash.flash_attention(q.contiguous(), k.contiguous(),
+                                  v.contiguous(), causal=causal)

@@ -2,8 +2,9 @@
 
 Each function is the mathematical definition with no tiling.  The kernel
 wrappers call these for CPU tensors, and ``chip_smoke.py`` holds every
-CUDA kernel against them on the card with tolerance 0: min, mask and a
-single f32 add are exact, so the two must agree bit for bit.
+CUDA kernel against them on the card.  The SSSP kernels (min, mask and a
+single f32 add) are exact, so there the two must agree bit for bit; the
+CIN and attention kernels sum in another order and are held allclose.
 """
 from __future__ import annotations
 
@@ -74,3 +75,37 @@ def masked_min_ref(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         return torch.full(x.shape[:-1], INF, dtype=torch.float32,
                           device=x.device)
     return torch.where(mask, x, INF).amin(dim=-1)
+
+
+def cin_layer_ref(x_k: torch.Tensor, x_0: torch.Tensor,
+                  w: torch.Tensor) -> torch.Tensor:
+    """xDeepFM CIN layer -> float32[B, K, D].
+
+    ``out[b, k, d] = sum_{h, m} w[k, h, m] * x_k[b, h, d] * x_0[b, m, d]``
+    with x_k [B, H, D], x_0 [B, M, D], w [K, H, M].  Builds the outer
+    product ``z[b, h, m, d]`` that the kernel never builds.
+    """
+    z = torch.einsum("bhd,bmd->bhmd", x_k, x_0)
+    return torch.einsum("khm,bhmd->bkd", w, z)
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        causal: bool = True) -> torch.Tensor:
+    """Plain softmax attention on ``[B, H, S, d]``, scores materialized.
+
+    Follows the kernel's numerics: inputs in float32, ``q`` scaled by
+    ``1/sqrt(d)`` first, masked scores ``-1e30``, the result cast to
+    ``q.dtype``.  The causal mask is ``q_pos >= k_pos``; the wrapper
+    admits it only for ``Sq == Sk``, where the reference's kernel and
+    its oracle agree.
+    """
+    d = q.shape[-1]
+    qf = q.float() * (1.0 / d ** 0.5)
+    logits = torch.einsum("bhqd,bhkd->bhqk", qf, k.float())
+    if causal:
+        s_q, s_k = q.shape[2], k.shape[2]
+        keep = torch.ones((s_q, s_k), dtype=torch.bool,
+                          device=q.device).tril()
+        logits = torch.where(keep, logits, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, v.float()).to(q.dtype)
