@@ -34,7 +34,9 @@ Phases, each failing the run (non-zero exit) if it fails:
  6. attention entry point: one ``ops.flash_attention`` call at a
     qwen3-32b layer's shape, its launches counted.
 
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record, one entry a kernel
+with each timed shape under ``shapes`` (and, for the split-f32 kernels,
+their three-product tensor-core bound); the last line is
 ``{"ok": true, "device": {...}}``.  Without CUDA, or without the rest of
 the repository, the script exits non-zero before printing either.
 """
@@ -55,6 +57,7 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
 BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 on the tensor cores
+TF32_OPS_PER_S = 495e12       # H100 SXM dense TF32 on the tensor cores
 REPS = 25
 DEVICE = "cuda"
 GRID_SIDE = 1024              # grid(side=1024): n = 2^20, 4.2 M edges
@@ -150,6 +153,21 @@ def bound(nbytes: float, nops: float, ops_per_s: float = FP32_OPS_PER_S):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def record(rec, name, shape, ms, plain, lib, dev, b_ms, b_by, **extra):
+    """One timed shape of a kernel, appended to its ``shapes``: event and
+    device times of the kernel, its plain version and the library call,
+    and the bound.  The kernel's own keys take the shape timed last, the
+    main path's (B = 8, CIN layer 2, bf16 attention)."""
+    r = rec.setdefault(name, {"max_abs_err": 0.0, "shapes": []})
+    r["shapes"].append(dict(
+        shape=shape, ms=ms, device_ms=dev["kernel"], plain_ms=plain,
+        plain_device_ms=dev["plain"], library_ms=lib,
+        library_device_ms=dev.get("library"), bound_ms=b_ms, bound_by=b_by,
+        **extra))
+    r.update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+             library_ms=lib)
+
+
 # ---------------------------------------------------------------------------
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
@@ -190,7 +208,7 @@ def kernel_phase(torch, pt):
         log(f"  {name:28s} {what:44s} max_abs_err={err}")
         check(err == 0.0, f"{name} disagrees with its plain version "
                           f"({what}): max_abs_err={err}")
-        r = rec.setdefault(name, {"max_abs_err": 0.0})
+        r = rec.setdefault(name, {"max_abs_err": 0.0, "shapes": []})
         r["max_abs_err"] = max(r["max_abs_err"], err)
 
     # --- B2 / B1 at the grid-1024 frontier shapes ----------------------
@@ -232,9 +250,8 @@ def kernel_phase(torch, pt):
             f"plain {plain:.4f} ms, scatter_reduce_ {lib:.4f} ms (events); "
             f"device {dt['kernel']:.4f} / {dt['plain']:.4f} / "
             f"{dt['library']:.4f} ms; bound {b_ms:.4f} ms ({b_by})")
-        rec["frontier_scatter_min_batch"].update(
-            ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-            library_ms=lib)
+        record(rec, "frontier_scatter_min_batch", f"B={B}", ms, plain, lib,
+               dt, b_ms, b_by)
         if B == 1:
             got1 = frontier_scatter_min(tgt, cand[0].contiguous(), g.n)
             held("frontier_scatter_min", got1, want[0], "B=1 (B1 wrapper)")
@@ -255,9 +272,8 @@ def kernel_phase(torch, pt):
                 f"{pl1:.4f} ms, scatter_reduce_ {lib1:.4f} ms (events); "
                 f"device {dt1['kernel']:.4f} / {dt1['plain']:.4f} / "
                 f"{dt1['library']:.4f} ms")
-            rec["frontier_scatter_min"].update(
-                ms=ms1, plain_ms=pl1, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib1)
+            record(rec, "frontier_scatter_min", "B=1", ms1, pl1, lib1, dt1,
+                   b_ms, b_by)
     # edge cases: all padding, all +inf, n not a multiple of the block
     tgt_pad = torch.full((cap, 4), g.n, dtype=torch.int32, device=dev)
     c_any = torch.rand((2, cap, 4), device=dev)
@@ -315,8 +331,7 @@ def kernel_phase(torch, pt):
         log(f"  relax_ell B={B}: kernel {ms:.4f} ms, plain {plain:.4f} ms "
             f"(events); device {dt['kernel']:.4f} / {dt['plain']:.4f} ms; "
             f"bound {b_ms:.4f} ms ({b_by})")
-        rec["relax_ell"].update(ms=ms, plain_ms=plain, bound_ms=b_ms,
-                                bound_by=b_by, library_ms=None)
+        record(rec, "relax_ell", f"B={B}", ms, plain, None, dt, b_ms, b_by)
         got = masked_min(x, mask)
         want = ref.masked_min_ref(x, mask)
         held("masked_min", got, want, f"B={B} n={n}")
@@ -328,8 +343,7 @@ def kernel_phase(torch, pt):
         log(f"  masked_min B={B}: kernel {ms:.4f} ms, plain {plain:.4f} ms "
             f"(events); device {dt['kernel']:.4f} / {dt['plain']:.4f} ms; "
             f"bound {b_ms:.4f} ms ({b_by})")
-        rec["masked_min"].update(ms=ms, plain_ms=plain, bound_ms=b_ms,
-                                 bound_by=b_by, library_ms=None)
+        record(rec, "masked_min", f"B={B}", ms, plain, None, dt, b_ms, b_by)
     # edge cases: empty masks, all-padding ELL rows, odd n
     x = torch.rand((3, 1001), device=dev) * 9
     none = torch.zeros((3, 1001), dtype=torch.bool, device=dev)
@@ -388,11 +402,14 @@ def model_kernel_phase(torch, rec):
         log(f"  {name:16s} {what:44s} max_abs_err={err:.3e} "
             f"(rtol {rtol:g}, atol {atol:g}: {'ok' if ok else 'FAILED'})")
         check(ok, f"{name} disagrees with its plain version ({what})")
-        r = rec.setdefault(name, {"max_abs_err": 0.0})
+        r = rec.setdefault(name, {"max_abs_err": 0.0, "shapes": []})
         r["max_abs_err"] = max(r["max_abs_err"], err)
+        return err
 
-    def timed(name, what, kern, plain, lib, lib_name, nbytes, nops,
-              ops_per_s=FP32_OPS_PER_S, peak_name="f32"):
+    def timed(name, what, err, kern, plain, lib, lib_name, nbytes, nops,
+              ops_per_s=FP32_OPS_PER_S, peak_name="f32", tc_ops_per_s=None):
+        """``tc_ops_per_s``: the tensor-core rate of a split-f32 kernel,
+        which takes three products for each f32 product."""
         ms = time_ms(torch, kern)
         pl = time_ms(torch, plain, reps=5, warmup=1)
         lb = time_ms(torch, lib, reps=5, warmup=1)
@@ -400,13 +417,19 @@ def model_kernel_phase(torch, rec):
                   plain=device_ms(torch, plain, reps=5),
                   library=device_ms(torch, lib, reps=5))
         b_ms, b_by = bound(nbytes, nops, ops_per_s)
+        extra = dict(max_abs_err=err)
+        tc = ""
+        if tc_ops_per_s:
+            extra["tensor_core_bound_ms"] = 3 * nops / tc_ops_per_s * 1e3
+            tc = (f", 3-product tensor-core bound "
+                  f"{extra['tensor_core_bound_ms']:.4f} ms")
         log(f"  {name} {what}: kernel {ms:.4f} ms, plain {pl:.4f} ms, "
             f"{lib_name} {lb:.4f} ms (events); device {dt['kernel']:.4f} / "
             f"{dt['plain']:.4f} / {dt['library']:.4f} ms; bound "
-            f"{b_ms:.4f} ms ({b_by}, {peak_name} peak); "
-            f"{nops / ms / 1e9:.2f} TFLOP/s")
-        rec[name].update(ms=ms, plain_ms=pl, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=lb)
+            f"{b_ms:.4f} ms ({b_by}, {peak_name} peak){tc}; "
+            f"{nops / ms / 1e9:.2f} TFLOP/s; device time / {lib_name}'s "
+            f"{dt['kernel'] / dt['library'] if dt['library'] else 0:.3f}")
+        record(rec, name, what, ms, pl, lb, dt, b_ms, b_by, **extra)
 
     # --- B5 at serve_p99, CIN layers 1 (H = 39) and 2 (H = 200) ---------
     c = CIN_SHAPE
@@ -422,15 +445,16 @@ def model_kernel_phase(torch, rec):
         plain32 = ref.cin_layer_ref(xk, x0, w)
         log(f"  cin_layer plain f32 vs f64 {what}: max_abs_err "
             f"{max_abs_err(torch, plain32, exact.float()):.3e}")
-        held("cin_layer", got, exact.float(), 3e-4, 3e-4, what + " vs f64")
+        err = held("cin_layer", got, exact.float(), 3e-4, 3e-4,
+                   what + " vs f64")
         nops = 2.0 * c["K"] * H * c["M"] * c["D"] * c["B"]
         nbytes = 4 * (c["B"] * H * c["D"] + c["B"] * c["M"] * c["D"]
                       + c["K"] * H * c["M"] + c["B"] * c["K"] * c["D"])
-        timed("cin_layer", what,
+        timed("cin_layer", what, err,
               lambda: cin_layer(xk, x0, w),
               lambda: ref.cin_layer_ref(xk, x0, w),
               lambda: torch.einsum("khm,bhd,bmd->bkd", w, xk, x0),
-              "einsum", nbytes, nops)
+              "einsum", nbytes, nops, tc_ops_per_s=TF32_OPS_PER_S)
     for B, H, M, D, K in ((37, 7, 5, 3, 65), (1, 200, 39, 10, 200)):
         xk = torch.randn((B, H, D), generator=g, device=DEVICE)
         x0 = torch.randn((B, M, D), generator=g, device=DEVICE)
@@ -449,15 +473,16 @@ def model_kernel_phase(torch, rec):
         q, k, v = attn_inputs(torch, dtype)
         what = (f"{str(dtype)[6:]} B={a['B']} H={a['H']} S={a['S']} "
                 f"d={a['d']} causal")
-        held("flash_attention", flash_attention(q, k, v, causal=True),
-             ref.flash_attention_ref(q, k, v, causal=True),
-             **ATTN_TOL[str(dtype)[6:]], what=what)
+        err = held("flash_attention", flash_attention(q, k, v, causal=True),
+                   ref.flash_attention_ref(q, k, v, causal=True),
+                   **ATTN_TOL[str(dtype)[6:]], what=what)
         nbytes = 4 * q.numel() * q.element_size()
-        timed("flash_attention", what,
+        timed("flash_attention", what, err,
               lambda: flash_attention(q, k, v, causal=True),
               lambda: ref.flash_attention_ref(q, k, v, causal=True),
               lambda: sdpa(q, k, v, is_causal=True), "sdpa", nbytes, nops,
-              peak, peak_name)
+              peak, peak_name,
+              BF16_OPS_PER_S if dtype == torch.float32 else None)
         del q, k, v
     for dtype in (torch.float32, torch.bfloat16):
         for (BH, S, d, causal) in ((3, 256, 64, False), (2, 128, 32, True),
@@ -977,7 +1002,8 @@ def main() -> int:
             "replaces": replaces, "launches": main_launch[name],
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            "shapes": r["shapes"]})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

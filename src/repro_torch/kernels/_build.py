@@ -34,7 +34,8 @@ SIGNATURES = {
                                    (_P, _P, _P, _I, _L, _I, _P)),
     "relax_ell": ("relax", (_P, _P, _P, _P, _P, _I, _I, _I, _P)),
     "masked_min": ("segment_min", (_P, _P, _P, _I, _I, _P)),
-    "cin_layer": ("cin", (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P)),
+    "cin_layer": ("cin", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _I, _P)),
     "flash_attention": ("flash_attn",
                         (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
 }

@@ -1,4 +1,5 @@
-// Flash attention (online softmax) for sm_90a, plain C interface.
+// Flash attention (online softmax) on Hopper's tensor cores, sm_90a, plain
+// C interface.
 //
 // Replaces the Pallas TPU kernel flash_attention
 // (src/repro/kernels/flash_attn.py): for each (batch, head) of
@@ -6,28 +7,43 @@
 //
 //     o = softmax(mask(q k^T / sqrt(d))) v
 //
-// without building the [Sq, Sk] scores in device memory.  Numerics are
-// the TPU kernel's: inputs cast to f32, q scaled by 1/sqrt(d) first,
-// masked scores -1e30 (not -inf), the online (m, l, acc) state in f32,
-// the output acc / max(l, 1e-30) cast to the input type.
+// without building the [Sq, Sk] scores in device memory.  Numerics follow
+// the TPU kernel: the online (m, l, acc) state in f32, masked scores
+// weigh 0 (the reference's -1e30; every row keeps an unmasked key), the
+// output acc / max(l, 1e-30) cast to the input type.  The 1/sqrt(d)
+// scale is applied to the f32 scores (times log2(e), fused into the exp2),
+// never to a rounded copy of q.
 //
-// Design.  The TPU kernel held a head's whole K and V in VMEM; here one
-// block owns kBq = 128 query rows of one (batch, head) and streams K and
-// V through shared memory in tiles of kBk = 16 keys, converted to f32 on
-// load.  Each of the block's 64 quads (4 adjacent threads) owns kRows = 2
-// query rows, r and r + 64: thread t holds the 16-byte chunks t, t + 4,
-// t + 8, ... of both rows' q and acc in registers (d / 4 floats a row,
-// 32 at d = 128), so every float4 read of the K or V tile serves two
-// rows; shared-memory reads, not FMAs, bound this design.  A score is 4
-// partial dot products summed over the quad by two xor shuffles, so all
-// four threads hold every score of the tile.
-// Causal blocks stop at the last key tile that touches the diagonal,
-// as the TPU kernel skipped key blocks above it, and the heaviest query
-// tiles are launched first.  This simple kernel uses the f32 FMA units,
-// not the tensor cores, for both types.
+// Design (FA2 on mma.sync).  A block owns 128 query rows of one (batch,
+// head).  In bf16 each of its 4 warps owns 32 rows, two 16-row m-tiles
+// that share every K and V fragment it loads (halving the ldmatrix
+// traffic a product, which bounds a 16-row warp); their Q comes from
+// shared memory, their [32, d] output accumulators and the scores of one
+// key tile stay in registers.  In f32 each of 8 warps owns 16 rows with Q
+// split into hi and lo in registers, and each K/V tile is split once for
+// the 128 rows.  K and V stream through shared memory in tiles of kBk =
+// 64 keys; rows are padded by 8 bf16 so that ldmatrix (.trans for V) is
+// free of bank conflicts, and head widths up to 32, 64 or 128 are
+// zero-padded there to that width (d = 100 runs as 128 columns).
+// - S = Q K^T and O += P V are mma.sync.m16n8k16 bf16 products with f32
+//   accumulators.  The online softmax runs on the S fragments in f32; the
+//   row max takes two quad shuffles, the row sum is kept per thread and
+//   reduced once at the end.  P is rounded to bf16 in registers and used
+//   directly as the A operand of P V (the m16n8k16 C layout is its A
+//   layout), so it never goes through shared memory.
+// - bf16: K/V tiles come in with cp.async, double-buffered.
+// - f32: every operand is split into bf16 hi = bf16(x) and lo = bf16(x -
+//   hi), and each product is taken as lo.hi + hi.lo + hi.hi (about 16
+//   significant bits, far inside the 2e-3 tolerance, at the bf16 rate: 3x
+//   TF32 would be 6 bf16-equivalents a product).  K and V are split once,
+//   when a tile is loaded (synchronous loads), into four bf16 tiles; Q is
+//   split into registers.
+// - Causal: key tiles above the diagonal are skipped and only the
+//   diagonal tiles are masked; the heaviest query tiles launch first.
 //
 // Bound on an H100: operations, 2 * Sq * Sk * d multiply-adds a head
-// (half that when causal) against 4 * S * d * sizeof(T) bytes a head.
+// (half that when causal), at 989 TFLOP/s dense bf16, three times that
+// work in f32; bytes 4 * S * d * sizeof(T) a head.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -36,167 +52,408 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 2;                   // query rows a quad
-constexpr int kBq = kThreads / 4 * kRows;  // query rows a block
-constexpr int kBk = 16;                    // keys a shared-memory tile
+// Warps a block, and 16-row m-tiles a warp: 128 query rows a block.
+template <typename T>
+constexpr int kWarps = sizeof(T) == 4 ? 8 : 4;
+template <typename T>
+constexpr int kMT = sizeof(T) == 4 ? 1 : 2;
+constexpr int kBk = 64;            // keys a shared-memory tile
 constexpr float kNegInf = -1e30f;
+constexpr double kLog2e = 1.4426950408889634;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// d += a b: a 16x16 (row), b 16x8 (col), bf16; d 16x8 f32
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16 bytes global -> shared, zero-filled when !full
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(smem_addr(dst)), "l"(src), "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+// bf16 pair (x0 in the low half)
+__device__ __forceinline__ uint32_t pack(float x0, float x1) {
+  return bits(__floats2bfloat162_rn(x0, x1));
+}
+// hi = bf16(x), lo = bf16(x - hi), for a pair
+__device__ __forceinline__ void split(float x0, float x1, uint32_t& hi,
+                                      uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = bits(h);
+  lo = pack(x0 - hf.x, x1 - hf.y);
+}
+
+__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
+  return __bfloat162float(p[0]);
+}
+
+// One block an SM as the floor lets ptxas use up to 255 registers a
+// thread, to keep ldmatrix loads ahead of the products; two 128-thread
+// blocks still fit an SM.
 template <typename T, int DMAX>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(32 * kWarps<T>, 1)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int Sq, int Sk,
-             int d, int causal, float scale) {
-  constexpr int kChunks = DMAX / 16;  // float4 chunks a thread
-  __shared__ __align__(16) float ks[kBk][DMAX];
-  __shared__ __align__(16) float vs[kBk][DMAX];
+             const T* __restrict__ v, T* __restrict__ o, int BH, int Sq,
+             int Sk, int d, int causal, int vec, float scale_log2) {
+  constexpr bool kF32 = sizeof(T) == 4;
+  constexpr int MT = kMT<T>;
+  constexpr int kThreads = 32 * kWarps<T>;
+  constexpr int kBq = 16 * MT * kWarps<T>;   // query rows a block
+  constexpr int DP = DMAX + 8;       // padded shared row, bf16 elements
+  constexpr int KD = DMAX / 16;      // k-steps of Q K^T
+  constexpr int ND = DMAX / 8;       // 8-wide column tiles of O
+  constexpr int NS = kBk / 8;        // 8-wide key tiles of S
+  constexpr int TILE = kBk * DP;     // one [kBk, DP] bf16 tile
+  // bf16: K, V of stage 0, then of stage 1, then Q [kBq, DP];
+  // f32: K hi, K lo, V hi, V lo
+  extern __shared__ __align__(16) __nv_bfloat16 sm[];
 
-  const int n_qtiles = Sq / kBq;
-  const int qt = n_qtiles - 1 - (int)(blockIdx.x % n_qtiles);
-  const long long bh = blockIdx.x / n_qtiles;
-  const int tid = threadIdx.x;
-  const int t = tid & 3;
-  int q_pos[kRows];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r)
-    q_pos[r] = qt * kBq + (tid >> 2) + r * (kThreads / 4);
+  const int n_qt = Sq / kBq;
+  const int qt = n_qt - 1 - (int)(blockIdx.x / BH);   // heaviest first
+  const long long bh = blockIdx.x % BH;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int q0 = qt * kBq;
+  const int wrow = 16 * MT * warp;        // the warp's first row in the tile
+  const int row0 = q0 + wrow + g;         // rows row0 + 16 mt, + 8
 
+  const T* qh = q + (bh * Sq + q0) * d;
   const T* kh = k + bh * Sk * d;
   const T* vh = v + bh * Sk * d;
 
-  float4 qv[kRows][kChunks], acc[kRows][kChunks];
-  float m[kRows], l[kRows];
+  // f32: Q fragments (A layout) in registers, split into hi and lo:
+  // register r holds row (r & 1) * 8, columns 16 kk + (r >> 1) * 8 + 2t, +1
+  uint32_t qa[kF32 ? KD : 1][4];
+  uint32_t ql[kF32 ? KD : 1][4];
+  __nv_bfloat16* qs = sm + 4 * TILE;      // bf16: Q of the block
+  if constexpr (kF32) {
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const T* qrow = q + (bh * Sq + q_pos[r]) * d;
+    for (int kk = 0; kk < KD; ++kk)
 #pragma unroll
-    for (int i = 0; i < kChunks; ++i) {
-      float e[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int dd = 4 * (t + 4 * i) + u;
-        e[u] = dd < d ? to_f32(qrow[dd]) * scale : 0.f;
+      for (int r = 0; r < 4; ++r) {
+        const T* qrow = qh + (wrow + g + (r & 1) * 8) * d;
+        const int c = 16 * kk + (r >> 1) * 8 + 2 * t;
+        const float x0 = c < d ? ld(qrow + c) : 0.f;
+        const float x1 = c + 1 < d ? ld(qrow + c + 1) : 0.f;
+        split(x0, x1, qa[kk][r], ql[kk][r]);
       }
-      qv[r][i] = make_float4(e[0], e[1], e[2], e[3]);
-      acc[r][i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  } else if (vec) {
+    for (int i = threadIdx.x; i < kBq * DMAX / 8; i += kThreads) {
+      const int r = i / (DMAX / 8);
+      const int c = (i % (DMAX / 8)) * 8;
+      cp_async16(qs + r * DP + c, qh + r * d + (c < d ? c : 0), c < d);
     }
-    m[r] = kNegInf;
-    l[r] = 0.f;
+  } else {
+    for (int i = threadIdx.x; i < kBq * DMAX; i += kThreads) {
+      const int r = i / DMAX;
+      const int c = i % DMAX;
+      qs[r * DP + c] = c < d ? qh[r * d + c] : __float2bfloat16(0.f);
+    }
   }
+  // one key tile into shared memory
+  auto load_tile = [&](int kt, int stage) {
+    const long long base = (long long)kt * kBk * d;
+    if constexpr (kF32) {
+      __nv_bfloat16* dst[4] = {sm, sm + TILE, sm + 2 * TILE, sm + 3 * TILE};
+      if (vec) {                                // d % 4 == 0, aligned
+        for (int i = threadIdx.x; i < kBk * DMAX / 4; i += kThreads) {
+          const int r = i / (DMAX / 4);
+          const int c = (i % (DMAX / 4)) * 4;
+          float4 kv = make_float4(0.f, 0.f, 0.f, 0.f), vv = kv;
+          if (c < d) {
+            kv = __ldg(reinterpret_cast<const float4*>(kh + base + r * d + c));
+            vv = __ldg(reinterpret_cast<const float4*>(vh + base + r * d + c));
+          }
+          uint32_t* kd_hi = reinterpret_cast<uint32_t*>(dst[0] + r * DP + c);
+          uint32_t* kd_lo = reinterpret_cast<uint32_t*>(dst[1] + r * DP + c);
+          uint32_t* vd_hi = reinterpret_cast<uint32_t*>(dst[2] + r * DP + c);
+          uint32_t* vd_lo = reinterpret_cast<uint32_t*>(dst[3] + r * DP + c);
+          split(kv.x, kv.y, kd_hi[0], kd_lo[0]);
+          split(kv.z, kv.w, kd_hi[1], kd_lo[1]);
+          split(vv.x, vv.y, vd_hi[0], vd_lo[0]);
+          split(vv.z, vv.w, vd_hi[1], vd_lo[1]);
+        }
+      } else {
+        for (int i = threadIdx.x; i < kBk * DMAX / 2; i += kThreads) {
+          const int r = i / (DMAX / 2);
+          const int c = (i % (DMAX / 2)) * 2;
+          const T* kr = kh + base + r * d;
+          const T* vr = vh + base + r * d;
+          const float k0 = c < d ? kr[c] : 0.f, k1 = c + 1 < d ? kr[c + 1] : 0.f;
+          const float v0 = c < d ? vr[c] : 0.f, v1 = c + 1 < d ? vr[c + 1] : 0.f;
+          split(k0, k1, *reinterpret_cast<uint32_t*>(dst[0] + r * DP + c),
+                *reinterpret_cast<uint32_t*>(dst[1] + r * DP + c));
+          split(v0, v1, *reinterpret_cast<uint32_t*>(dst[2] + r * DP + c),
+                *reinterpret_cast<uint32_t*>(dst[3] + r * DP + c));
+        }
+      }
+    } else {
+      __nv_bfloat16* ks = sm + stage * 2 * TILE;
+      __nv_bfloat16* vs = ks + TILE;
+      if (vec) {                                // d % 8 == 0, aligned
+        for (int i = threadIdx.x; i < kBk * DMAX / 8; i += kThreads) {
+          const int r = i / (DMAX / 8);
+          const int c = (i % (DMAX / 8)) * 8;
+          const bool in = c < d;
+          const long long off = base + r * d + (in ? c : 0);
+          cp_async16(ks + r * DP + c, kh + off, in);
+          cp_async16(vs + r * DP + c, vh + off, in);
+        }
+      } else {
+        for (int i = threadIdx.x; i < kBk * DMAX; i += kThreads) {
+          const int r = i / DMAX;
+          const int c = i % DMAX;
+          const __nv_bfloat16 zero = __float2bfloat16(0.f);
+          ks[r * DP + c] = c < d ? kh[base + r * d + c] : zero;
+          vs[r * DP + c] = c < d ? vh[base + r * d + c] : zero;
+        }
+      }
+    }
+  };
 
-  int n_ktiles = Sk / kBk;
+  int n_kt = Sk / kBk;
   if (causal) {
-    const int last = (qt * kBq + kBq + kBk - 1) / kBk;
-    n_ktiles = last < n_ktiles ? last : n_ktiles;
+    const int last = (q0 + kBq + kBk - 1) / kBk;
+    n_kt = last < n_kt ? last : n_kt;
   }
-  for (int kt = 0; kt < n_ktiles; ++kt) {
+
+  float acc[MT][ND][4];
+  float m[MT][2], l[MT][2];
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][j][e] = 0.f;
+    m[mt][0] = m[mt][1] = kNegInf;
+    l[mt][0] = l[mt][1] = 0.f;
+  }
+
+  // ldmatrix lane addresses inside a tile.  K (B of Q K^T, 16 keys x 16
+  // columns a call): matrices (keys +0, cols +0), (+0, +8), (+8, +0),
+  // (+8, +8) give b0b1, b2b3 of key tile 2np and of 2np + 1.
+  const int k_row = (lane & 7) + ((lane >> 4) << 3);
+  const int k_col = ((lane >> 3) & 1) << 3;
+  // V (B of P V, .trans, 16 keys x 16 columns): matrices (keys +0, cols
+  // +0), (+8, +0), (+0, +8), (+8, +8) give b0b1, b2b3 of column tile 2np
+  // and of 2np + 1.
+  const int v_row = (lane & 7) + (((lane >> 3) & 1) << 3);
+  const int v_col = (lane >> 4) << 3;
+  // Q (A of Q K^T, 16 rows x 16 columns): matrices (rows +0, cols +0),
+  // (+8, +0), (+0, +8), (+8, +8) give a0 .. a3.
+  const int q_off = (wrow + (lane & 15)) * DP + ((lane >> 4) << 3);
+
+  if constexpr (!kF32) {
+    load_tile(0, 0);
+    cp_commit();                        // with Q's copies
+  }
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const __nv_bfloat16 *k_hi, *k_lo, *v_hi, *v_lo;
+    if constexpr (kF32) {
+      __syncthreads();                 // every warp is done with the tiles
+      load_tile(kt, 0);
+      __syncthreads();
+      k_hi = sm;
+      k_lo = sm + TILE;
+      v_hi = sm + 2 * TILE;
+      v_lo = sm + 3 * TILE;
+    } else {
+      if (kt + 1 < n_kt) {
+        load_tile(kt + 1, (kt + 1) & 1);   // read by no warp since kt - 1
+        cp_commit();
+        cp_wait<1>();
+      } else {
+        cp_wait<0>();
+      }
+      __syncthreads();
+      k_hi = k_lo = sm + (kt & 1) * 2 * TILE;
+      v_hi = v_lo = k_hi + TILE;
+    }
+
+    // S = Q K^T (raw dot products)
+    float s[MT][NS][4];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[mt][j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KD; ++kk) {
+      uint32_t qf[MT][4];
+      if constexpr (kF32) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) qf[0][r] = qa[kk][r];
+      } else {
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt)
+          ldsm_x4(qf[mt], qs + q_off + 16 * mt * DP + 16 * kk);
+      }
+#pragma unroll
+      for (int np = 0; np < NS / 2; ++np) {
+        const int off = (16 * np + k_row) * DP + 16 * kk + k_col;
+        uint32_t b[4];
+        ldsm_x4(b, k_hi + off);
+        if constexpr (kF32) {
+          uint32_t bl[4];
+          ldsm_x4(bl, k_lo + off);
+          mma(s[0][2 * np], ql[kk], b[0], b[1]);
+          mma(s[0][2 * np + 1], ql[kk], b[2], b[3]);
+          mma(s[0][2 * np], qf[0], bl[0], bl[1]);
+          mma(s[0][2 * np + 1], qf[0], bl[2], bl[3]);
+        }
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma(s[mt][2 * np], qf[mt], b[0], b[1]);
+          mma(s[mt][2 * np + 1], qf[mt], b[2], b[3]);
+        }
+      }
+    }
+
+    // online softmax in log2 units: x = s * scale_log2; masked scores
+    // count as -inf here (p = 0 either way: every row has an unmasked key)
     const int k0 = kt * kBk;
-    __syncthreads();                 // every thread is done with ks, vs
-    for (int i = tid; i < kBk * DMAX; i += kThreads) {
-      const int j = i / DMAX;
-      const int dd = i % DMAX;
-      const long long g = (long long)(k0 + j) * d + dd;
-      ks[j][dd] = dd < d ? to_f32(kh[g]) : 0.f;
-      vs[j][dd] = dd < d ? to_f32(vh[g]) : 0.f;
+    const bool diag = causal && k0 + kBk - 1 > q0;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (diag &&
+              k0 + 8 * j + 2 * t + (e & 1) > row0 + 16 * mt + (e >> 1) * 8)
+            s[mt][j][e] = -INFINITY;
+          mx[e >> 1] = fmaxf(mx[e >> 1], s[mt][j][e]);
+        }
+      float alpha[2], nm[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m[mt][r], mx[r] * scale_log2);
+        alpha[r] = ex2(m[mt][r] - m_new);
+        m[mt][r] = m_new;
+        nm[r] = -m_new;
+        l[mt][r] *= alpha[r];
+      }
+#pragma unroll
+      for (int j = 0; j < ND; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][j][e] *= alpha[e >> 1];
+#pragma unroll
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = ex2(fmaf(s[mt][j][e], scale_log2, nm[e >> 1]));
+          l[mt][e >> 1] += p;
+          s[mt][j][e] = p;
+        }
     }
-    __syncthreads();
 
-    float s[kRows][kBk];
-    float mx[kRows];
+    // O += P V, P from the S fragments in registers
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) mx[r] = kNegInf;
+    for (int kk = 0; kk < kBk / 16; ++kk) {
+      uint32_t pa[MT][4], pl[4];
 #pragma unroll
-    for (int j = 0; j < kBk; ++j) {
-      const float4* kr = reinterpret_cast<const float4*>(ks[j]);
-      float part[kRows];
+      for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) part[r] = 0.f;
-#pragma unroll
-      for (int i = 0; i < kChunks; ++i) {
-        const float4 kk = kr[t + 4 * i];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          part[r] = fmaf(qv[r][i].x, kk.x, part[r]);
-          part[r] = fmaf(qv[r][i].y, kk.y, part[r]);
-          part[r] = fmaf(qv[r][i].z, kk.z, part[r]);
-          part[r] = fmaf(qv[r][i].w, kk.w, part[r]);
+        for (int r = 0; r < 4; ++r) {
+          const float x0 = s[mt][2 * kk + (r >> 1)][(r & 1) * 2];
+          const float x1 = s[mt][2 * kk + (r >> 1)][(r & 1) * 2 + 1];
+          if constexpr (kF32) split(x0, x1, pa[mt][r], pl[r]);
+          else pa[mt][r] = pack(x0, x1);
         }
-      }
 #pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        part[r] += __shfl_xor_sync(0xffffffffu, part[r], 1);
-        part[r] += __shfl_xor_sync(0xffffffffu, part[r], 2);
-        if (causal && k0 + j > q_pos[r]) part[r] = kNegInf;
-        s[r][j] = part[r];
-        mx[r] = fmaxf(mx[r], part[r]);
-      }
-    }
-    float m_new[kRows], psum[kRows];
+      for (int np = 0; np < ND / 2; ++np) {
+        const int off = (16 * kk + v_row) * DP + 16 * np + v_col;
+        uint32_t b[4];
+        ldsm_x4_trans(b, v_hi + off);
+        if constexpr (kF32) {
+          uint32_t bl[4];
+          ldsm_x4_trans(bl, v_lo + off);
+          mma(acc[0][2 * np], pl, b[0], b[1]);
+          mma(acc[0][2 * np + 1], pl, b[2], b[3]);
+          mma(acc[0][2 * np], pa[0], bl[0], bl[1]);
+          mma(acc[0][2 * np + 1], pa[0], bl[2], bl[3]);
+        }
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      m_new[r] = fmaxf(m[r], mx[r]);
-      const float alpha = expf(m[r] - m_new[r]);
-#pragma unroll
-      for (int i = 0; i < kChunks; ++i) {
-        acc[r][i].x *= alpha;
-        acc[r][i].y *= alpha;
-        acc[r][i].z *= alpha;
-        acc[r][i].w *= alpha;
-      }
-      l[r] *= alpha;
-      psum[r] = 0.f;
-    }
-#pragma unroll
-    for (int j = 0; j < kBk; ++j) {
-      float p[kRows];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        p[r] = expf(s[r][j] - m_new[r]);
-        psum[r] += p[r];
-      }
-      const float4* vr = reinterpret_cast<const float4*>(vs[j]);
-#pragma unroll
-      for (int i = 0; i < kChunks; ++i) {
-        const float4 vv = vr[t + 4 * i];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          acc[r][i].x = fmaf(p[r], vv.x, acc[r][i].x);
-          acc[r][i].y = fmaf(p[r], vv.y, acc[r][i].y);
-          acc[r][i].z = fmaf(p[r], vv.z, acc[r][i].z);
-          acc[r][i].w = fmaf(p[r], vv.w, acc[r][i].w);
+        for (int mt = 0; mt < MT; ++mt) {
+          mma(acc[mt][2 * np], pa[mt], b[0], b[1]);
+          mma(acc[mt][2 * np + 1], pa[mt], b[2], b[3]);
         }
       }
     }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      l[r] += psum[r];
-      m[r] = m_new[r];
-    }
+    if constexpr (!kF32) __syncthreads();   // before the next load lands
   }
 
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const float inv = 1.f / fmaxf(l[r], 1e-30f);
-    T* orow = o + (bh * Sq + q_pos[r]) * d;
+  for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
-    for (int i = 0; i < kChunks; ++i) {
-      const float e[4] = {acc[r][i].x, acc[r][i].y, acc[r][i].z,
-                          acc[r][i].w};
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const int dd = 4 * (t + 4 * i) + u;
-        if (dd < d) store(orow + dd, e[u] * inv);
-      }
+    for (int r = 0; r < 2; ++r) {
+      l[mt][r] += __shfl_xor_sync(0xffffffffu, l[mt][r], 1);
+      l[mt][r] += __shfl_xor_sync(0xffffffffu, l[mt][r], 2);
+      l[mt][r] = 1.f / fmaxf(l[mt][r], 1e-30f);
     }
+#pragma unroll
+    for (int j = 0; j < ND; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = 8 * j + 2 * t + (e & 1);
+        if (c < d) {
+          T* orow = o + (bh * Sq + row0 + 16 * mt + (e >> 1) * 8) * d;
+          const float x = acc[mt][j][e] * l[mt][e >> 1];
+          if constexpr (kF32) orow[c] = x;
+          else orow[c] = __float2bfloat16(x);
+        }
+      }
   }
 }
 
@@ -204,13 +461,23 @@ template <typename T, int DMAX>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int BH, int Sq, int Sk, int d, int causal,
                    cudaStream_t s) {
-  const long long blocks = (long long)BH * (Sq / kBq);
+  const long long blocks = (long long)BH * (Sq / (16 * kMT<T> * kWarps<T>));
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const float scale = (float)(1.0 / sqrt((double)d));  // as the reference
-  flash_kernel<T, DMAX><<<(unsigned)blocks, kThreads, 0, s>>>(
+  const int q_rows = sizeof(T) == 4 ? 0 : 16 * kMT<T> * kWarps<T>;
+  const int smem = (4 * kBk + q_rows) * (DMAX + 8) * (int)sizeof(__nv_bfloat16);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_kernel<T, DMAX>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  const int lanes = sizeof(T) == 4 ? 4 : 8;   // elements a vector load
+  const int vec = d % lanes == 0 &&
+                  ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v) % 16 == 0;
+  // the reference's scale, then log2(e) for exp2
+  const float scale_log2 = (float)(1.0 / sqrt((double)d) * kLog2e);
+  flash_kernel<T, DMAX><<<(unsigned)blocks, 32 * kWarps<T>, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, d, causal,
-      scale);
+      static_cast<const T*>(v), static_cast<T*>(o), BH, Sq, Sk, d, causal,
+      vec, scale_log2);
   return cudaGetLastError();
 }
 
@@ -227,11 +494,12 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
 
 // q [BH, Sq, d], k and v [BH, Sk, d], o [BH, Sq, d], all of one type:
 // float32 (bf16 = 0) or bfloat16 (bf16 = 1).  Sq % 128 == 0,
-// Sk % 16 == 0, 1 <= d <= 128.
+// Sk % 64 == 0, 1 <= d <= 128; causal only with Sq == Sk.
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, int BH, int Sq, int Sk, int d,
                                int causal, int bf16, void* stream) {
-  if (d < 1 || d > 128 || Sq % kBq != 0 || Sk % kBk != 0)
+  if (d < 1 || d > 128 || Sq % 128 != 0 || Sk % kBk != 0 ||
+      (causal && Sq != Sk))
     return (int)cudaErrorInvalidValue;
   if (BH <= 0 || Sq <= 0) return (int)cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
