@@ -10,7 +10,9 @@ Phases, each failing the run (non-zero exit) if it fails:
  2. build: every kernel of ``src/repro_torch/kernels/csrc`` with nvcc
     into ``build/repro_torch`` (timed);
  3. kernels: each CUDA kernel against its plain PyTorch version on the
-    card at the main paths' shapes, the SSSP kernels on edge cases too,
+    card at the main paths' shapes, the SSSP kernels on edge cases too
+    (B3 also over full rows; the fused B2 beside the gather + tgt/cand
+    kernel it replaced on the main path),
     with tolerance 0 for the SSSP kernels (min, mask and one f32 add are
     exact), the reference's own for the CIN (3e-4) and f32 attention
     (2e-3), and two bf16 steps for bf16 attention (rtol 1.6e-2, atol
@@ -19,9 +21,10 @@ Phases, each failing the run (non-zero exit) if it fails:
  4. SSSP main path at full size through ``repro_torch.sssp.Solver``:
     grid(side=1024) via "auto" (must route to frontier), gnp(2^20, 8) via
     "auto" (must route to segment) and via "pallas"; ``solve`` and an
-    8-source ``solve_batch`` each, with the kernels' launch counts read
-    around each run; then distances against scipy's float64 Dijkstra,
-    the backends bitwise against each other, and the card bitwise
+    8-source ``solve_batch`` each, and the grid's segment and pallas
+    ``solve``, with the kernels' launch counts read around each run;
+    then distances against scipy's float64 Dijkstra, the backends
+    bitwise against each other, and the card bitwise
     against the port's own CPU solve on 2^14-vertex graphs of the seven
     generator families;
  5. xDeepFM scoring at the paper's FULL config (18.9 M table rows)
@@ -108,8 +111,9 @@ def time_ms(torch, fn, reps: int = REPS, warmup: int = 3) -> float:
     return statistics.median(s.elapsed_time(e) for s, e in evs)
 
 
-def device_ms(torch, fn, reps: int = REPS) -> float:
-    """Device time of one ``fn()``: the kernels' own time summed over
+def device_profile(torch, fn, reps: int = REPS):
+    """Device time of one ``fn()`` and the device operations it runs: the
+    kernels' (and fills' and copies') own time and count summed over
     ``reps`` runs by ``torch.profiler`` (CUPTI), divided by ``reps``.
     Unlike the event time it leaves out the host's launch gaps."""
     from torch.profiler import ProfilerActivity, profile
@@ -120,8 +124,14 @@ def device_ms(torch, fn, reps: int = REPS) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(_self_device_us(e) for e in _device_events(prof)
-               ) / reps / 1e3
+    ev = _device_events(prof)
+    return (sum(_self_device_us(e) for e in ev) / reps / 1e3,
+            sum(e.count for e in ev) / reps)
+
+
+def device_ms(torch, fn, reps: int = REPS) -> float:
+    """Device time of one ``fn()`` (``device_profile``)."""
+    return device_profile(torch, fn, reps)[0]
 
 
 def _device_events(prof):
@@ -172,10 +182,9 @@ def record(rec, name, shape, ms, plain, lib, dev, b_ms, b_by, **extra):
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def frontier_inputs(torch, ops, g, csr, B: int, cap: int, seed: int):
-    """tgt/cand of the shared-frontier relax on a real frontier buffer of
-    ``cap`` vertices, built by the same gather ``ops.frontier_relax_b``
-    does before it calls the kernel."""
+def frontier_inputs(torch, g, B: int, cap: int, seed: int):
+    """x, src_mask and a frontier buffer of ``cap`` distinct vertices (no
+    padding: a full, non-overflow buffer) on the graph ``g``."""
     rng = np.random.default_rng(seed)
     dev = g.device
     f_idx = torch.from_numpy(np.sort(rng.choice(g.n, cap, replace=False))
@@ -183,21 +192,30 @@ def frontier_inputs(torch, ops, g, csr, B: int, cap: int, seed: int):
     x = torch.from_numpy(rng.uniform(0, 50, (B, g.n)).astype(np.float32)
                          ).to(dev)
     mask = torch.from_numpy(rng.random((B, g.n)) < 0.7).to(dev)
-    u, cell, epos = ops._out_cells(csr, f_idx)
-    tgt = torch.where(cell, csr.dst[epos], g.n).to(torch.int32).contiguous()
+    return x, mask, f_idx
+
+
+def gather_tgt_cand(torch, ref, csr, x, mask, f_idx):
+    """The tgt/cand table of the shared-frontier relax, built by the
+    PyTorch gather ``ops.frontier_relax_b`` ran around the tgt/cand
+    kernel before the gather was fused into the kernel."""
+    n = csr.n
+    u, cell, epos = ref.out_cells(csr.indptr, f_idx, csr.max_out_deg,
+                                  csr.e_pad)
+    tgt = torch.where(cell, csr.dst[epos], n).to(torch.int32)
+    w = csr.w[epos]
     lane_ok = cell[None] & mask[:, u][:, :, None]
-    cand = torch.where(lane_ok, x[:, u][:, :, None] + csr.w[epos][None],
-                       float("inf")).contiguous()
-    return tgt, cand
+    cand = torch.where(lane_ok, x[:, u][:, :, None] + w[None], float("inf"))
+    return tgt.contiguous(), cand.contiguous()
 
 
 def kernel_phase(torch, pt):
-    from repro_torch.kernels import ref
+    from repro_torch.core.graph import ell_row_len
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels.frontier_relax import (
-        frontier_scatter_min, frontier_scatter_min_batch)
-    from repro_torch.kernels.relax import relax_ell
+        frontier_relax_csr, frontier_scatter_min, frontier_scatter_min_batch)
+    from repro_torch.kernels.relax import relax_ell, xm_stride
     from repro_torch.kernels.segment_min import masked_min
-    from repro_torch.kernels import ops
     gen, sssp = pt["generators"], pt["sssp"]
     dev = torch.device(DEVICE)
     rec = {}
@@ -219,62 +237,124 @@ def kernel_phase(torch, pt):
     log(f"[kernels] grid side 1024: n={g.n} e={g.e} cap={cap} "
         f"max_out_deg={csr.max_out_deg}")
     for B in (1, 8):
-        tgt, cand = frontier_inputs(torch, ops, g, csr, B, cap, seed=B)
+        x, mask, f_idx = frontier_inputs(torch, g, B, cap, seed=B)
+        args = (x, mask, f_idx, csr.indptr, csr.dst, csr.w, csr.max_out_deg)
+        want = ref.frontier_relax_ref(*args)
+        held("frontier_relax_csr", frontier_relax_csr(*args), want,
+             f"B={B} cap {cap} x {csr.max_out_deg}")
+        # timed as the engine calls it; beside it the unfused form: the
+        # PyTorch gather, then the tgt/cand kernel
+        fused = lambda: ops.frontier_relax_b(x, csr, f_idx, mask)  # noqa: E731
+        held("frontier_relax_csr", fused(), want,
+             f"B={B} ops.frontier_relax_b")
+
+        def unfused():
+            tgt, cand = gather_tgt_cand(torch, ref, csr, x, mask, f_idx)
+            return frontier_scatter_min_batch(tgt, cand, g.n)
+        ms = time_ms(torch, fused)
+        plain = time_ms(torch, lambda: ref.frontier_relax_ref(*args))
+        un_ms = time_ms(torch, unfused)
+        k_dev, k_ops = device_profile(torch, fused)
+        p_dev, _ = device_profile(torch, lambda: ref.frontier_relax_ref(*args))
+        u_dev, u_ops = device_profile(torch, unfused)
+        dt = dict(kernel=k_dev, plain=p_dev)
+        slot_deg = csr.indptr[f_idx.long() + 1] - csr.indptr[f_idx.long()]
+        live = int(slot_deg.sum())
+        b_ms, b_by = bound(12 * cap + 8 * live + 5 * B * cap + 4 * B * g.n,
+                           B * live)
+        log(f"  frontier_relax_csr B={B} (ops.frontier_relax_b): fused "
+            f"{ms:.4f} ms, plain {plain:.4f} ms, gather + tgt/cand kernel "
+            f"{un_ms:.4f} ms (events); device {k_dev:.4f} / {p_dev:.4f} / "
+            f"{u_dev:.4f} ms; device ops a call {k_ops:.1f} fused, "
+            f"{u_ops:.1f} gather + kernel; wrapper host cost "
+            f"{ms - k_dev:.4f} ms; {live} live cells; bound {b_ms:.4f} ms "
+            f"({b_by})")
+        record(rec, "frontier_relax_csr", f"B={B}", ms, plain, None, dt,
+               b_ms, b_by, device_ops=k_ops, unfused_ms=un_ms,
+               unfused_device_ms=u_dev, unfused_device_ops=u_ops)
+
+        # the tgt/cand entry at the TPU kernel's signature; its library
+        # column is the same function: an +inf fill and scatter_reduce_
+        tgt, cand = gather_tgt_cand(torch, ref, csr, x, mask, f_idx)
         got = frontier_scatter_min_batch(tgt, cand, g.n)
-        want = ref.frontier_scatter_min_batch_ref(tgt, cand, g.n)
-        held("frontier_scatter_min_batch", got, want,
+        want2 = ref.frontier_scatter_min_batch_ref(tgt, cand, g.n)
+        held("frontier_scatter_min_batch", got, want2,
              f"B={B} tgt{tuple(tgt.shape)}")
-        ms = time_ms(torch, lambda: frontier_scatter_min_batch(tgt, cand,
-                                                              g.n))
-        plain = time_ms(torch, lambda: ref.frontier_scatter_min_batch_ref(
-            tgt, cand, g.n))
+        check(torch.equal(want2, want), "the tgt/cand and fused plain "
+                                        "versions disagree")
         idx = torch.where((tgt >= 0) & (tgt < g.n), tgt.long(), g.n
                           ).reshape(1, -1).expand(B, -1)
         vals = cand.reshape(B, -1)
-        lib_out = torch.full((B, g.n + 1), inf, device=dev)
-        lib = time_ms(torch, lambda: lib_out.scatter_reduce_(
-            1, idx, vals, "amin"))
-        check(torch.equal(lib_out[:, :g.n], want), "scatter_reduce_ "
-              "yardstick disagrees with the plain version")
-        dt = dict(
-            kernel=device_ms(torch, lambda: frontier_scatter_min_batch(
-                tgt, cand, g.n)),
-            plain=device_ms(torch, lambda: ref.frontier_scatter_min_batch_ref(
-                tgt, cand, g.n)),
-            library=device_ms(torch, lambda: lib_out.scatter_reduce_(
-                1, idx, vals, "amin")))
+
+        def library(rows=B):
+            out = torch.full((rows, g.n + 1), inf, device=dev)
+            return out.scatter_reduce_(1, idx[:rows], vals[:rows], "amin")
+        check(torch.equal(library()[:, :g.n], want2), "full + "
+              "scatter_reduce_ yardstick disagrees with the plain version")
+        kern = lambda: frontier_scatter_min_batch(tgt, cand, g.n)  # noqa: E731
+        ms = time_ms(torch, kern)
+        plain = time_ms(torch, lambda: ref.frontier_scatter_min_batch_ref(
+            tgt, cand, g.n))
+        lib = time_ms(torch, library)
+        dt = dict(kernel=device_ms(torch, kern),
+                  plain=device_ms(torch, lambda: ref.
+                                  frontier_scatter_min_batch_ref(
+                                      tgt, cand, g.n)),
+                  library=device_ms(torch, library))
         cells = tgt.numel()
         b_ms, b_by = bound(4 * cells + 4 * B * cells + 4 * B * g.n,
                            B * cells)
         log(f"  frontier_scatter_min_batch B={B}: kernel {ms:.4f} ms, "
-            f"plain {plain:.4f} ms, scatter_reduce_ {lib:.4f} ms (events); "
-            f"device {dt['kernel']:.4f} / {dt['plain']:.4f} / "
+            f"plain {plain:.4f} ms, full + scatter_reduce_ {lib:.4f} ms "
+            f"(events); device {dt['kernel']:.4f} / {dt['plain']:.4f} / "
             f"{dt['library']:.4f} ms; bound {b_ms:.4f} ms ({b_by})")
         record(rec, "frontier_scatter_min_batch", f"B={B}", ms, plain, lib,
                dt, b_ms, b_by)
         if B == 1:
-            got1 = frontier_scatter_min(tgt, cand[0].contiguous(), g.n)
-            held("frontier_scatter_min", got1, want[0], "B=1 (B1 wrapper)")
             c0 = cand[0].contiguous()
-            ms1 = time_ms(torch, lambda: frontier_scatter_min(tgt, c0, g.n))
-            pl1 = time_ms(torch, lambda: ref.frontier_scatter_min_ref(
-                tgt, c0, g.n))
-            lib1 = time_ms(torch, lambda: lib_out[:1].scatter_reduce_(
-                1, idx[:1], vals[:1], "amin"))
-            dt1 = dict(
-                kernel=device_ms(torch, lambda: frontier_scatter_min(
-                    tgt, c0, g.n)),
-                plain=device_ms(torch, lambda: ref.frontier_scatter_min_ref(
-                    tgt, c0, g.n)),
-                library=device_ms(torch, lambda: lib_out[:1].scatter_reduce_(
-                    1, idx[:1], vals[:1], "amin")))
+            held("frontier_scatter_min", frontier_scatter_min(tgt, c0, g.n),
+                 want[0], "B=1 (B1 wrapper)")
+            def k1():
+                return frontier_scatter_min(tgt, c0, g.n)
+
+            def p1():
+                return ref.frontier_scatter_min_ref(tgt, c0, g.n)
+            ms1, pl1, lib1 = (time_ms(torch, k1), time_ms(torch, p1),
+                              time_ms(torch, lambda: library(1)))
+            dt1 = dict(kernel=device_ms(torch, k1), plain=device_ms(torch, p1),
+                       library=device_ms(torch, lambda: library(1)))
             log(f"  frontier_scatter_min B=1: kernel {ms1:.4f} ms, plain "
-                f"{pl1:.4f} ms, scatter_reduce_ {lib1:.4f} ms (events); "
-                f"device {dt1['kernel']:.4f} / {dt1['plain']:.4f} / "
-                f"{dt1['library']:.4f} ms")
+                f"{pl1:.4f} ms, full + scatter_reduce_ {lib1:.4f} ms "
+                f"(events); device {dt1['kernel']:.4f} / {dt1['plain']:.4f} "
+                f"/ {dt1['library']:.4f} ms")
             record(rec, "frontier_scatter_min", "B=1", ms1, pl1, lib1, dt1,
                    b_ms, b_by)
-    # edge cases: all padding, all +inf, n not a multiple of the block
+    # fused edge cases: an all-padding buffer; n=1001 with a partial and a
+    # full buffer (every vertex, then padding) and duplicate targets
+    x2, m2, _ = frontier_inputs(torch, g, 2, cap, seed=3)
+    f_pad = torch.full((cap,), g.n, dtype=torch.int32, device=dev)
+    a_pad = (x2, m2, f_pad, csr.indptr, csr.dst, csr.w, csr.max_out_deg)
+    held("frontier_relax_csr", frontier_relax_csr(*a_pad),
+         ref.frontier_relax_ref(*a_pad), "all-padding buffer")
+    rng = np.random.default_rng(11)
+    s_src, s_dst = rng.integers(0, 1001, 6000), rng.integers(0, 1001, 6000)
+    keep = s_src != s_dst
+    small_g = sssp.build_graph(1001, s_src[keep], s_dst[keep],
+                               rng.uniform(0.05, 1, keep.sum()), device=dev)
+    sc = small_g.csr()
+    x3, m3, _ = frontier_inputs(torch, small_g, 3, 8, seed=4)
+    for what, f in (("partial", np.concatenate([np.sort(rng.choice(
+            1001, 300, replace=False)), np.full(212, 1001)])),
+            ("full", np.concatenate([np.arange(1001), np.full(23, 1001)]))):
+        f3 = torch.from_numpy(f.astype(np.int32)).to(dev)
+        a3 = (x3, m3, f3, sc.indptr, sc.dst, sc.w, sc.max_out_deg)
+        held("frontier_relax_csr", frontier_relax_csr(*a3),
+             ref.frontier_relax_ref(*a3), f"n=1001 B=3 {what} buffer")
+        held("frontier_relax_csr", ops.frontier_relax(
+            x3[0].contiguous(), sc, f3, m3[0].contiguous()),
+            ref.frontier_relax_ref(*a3)[0], f"n=1001 {what} (B1 op)")
+    # tgt/cand edge cases: all padding, all +inf, n not a multiple of the
+    # block
     tgt_pad = torch.full((cap, 4), g.n, dtype=torch.int32, device=dev)
     c_any = torch.rand((2, cap, 4), device=dev)
     held("frontier_scatter_min_batch",
@@ -304,47 +384,87 @@ def kernel_phase(torch, pt):
               "negative-input behaviour of the scatter-min kernel changed")
     del g, csr
 
+    def relax_timed(what, ell, B, seed):
+        """B3 at one shape: held against the plain version, timed as the
+        engine calls it and over full rows (row_len = deg_pad), with the
+        live-cell bound (the function's), the same plus the round trip of
+        the kernel's packed lanes, and the padded-layout bound."""
+        n = ell.n
+        rng = np.random.default_rng(seed)
+        x = torch.from_numpy(rng.uniform(0, 50, (B, n)).astype(np.float32)
+                             ).to(dev)
+        x[torch.from_numpy(rng.random((B, n)) < 0.3).to(dev)] = inf
+        mask = torch.from_numpy(rng.random((B, n)) < 0.5).to(dev)
+        arrays = (ell.in_src, ell.in_w, n)
+        want = ref.relax_ell_ref(x, mask, *arrays)
+        whole = torch.full_like(ell.row_len, ell.deg_pad)
+        kern = lambda: relax_ell(x, mask, *arrays, ell.row_len)  # noqa: E731
+        full = lambda: relax_ell(x, mask, *arrays, whole)  # noqa: E731
+        shape = f"{what} B={B} [{ell.n_pad}, {ell.deg_pad}]"
+        held("relax_ell", kern(), want, shape)
+        held("relax_ell", full(), want, f"{what} B={B} full rows")
+        ms = time_ms(torch, kern)
+        plain = time_ms(torch, lambda: ref.relax_ell_ref(x, mask, *arrays),
+                        reps=5, warmup=1)
+        dt = dict(kernel=device_ms(torch, kern), plain=device_ms(
+            torch, lambda: ref.relax_ell_ref(x, mask, *arrays), reps=5))
+        f_dev = device_ms(torch, full)
+        live = int((ell.in_src[:n] < n).sum())
+        live_bytes = 8 * live + 4 * n + 5 * B * n + 4 * B * n
+        b_ms, b_by = bound(live_bytes, 2 * B * live)
+        xm_bytes = 8 * n * xm_stride(B)
+        packed_ms = (live_bytes + xm_bytes) / HBM_BYTES_PER_S * 1e3
+        pad_ms, pad_by = bound(8 * n * ell.deg_pad + 9 * B * n,
+                               2 * B * n * ell.deg_pad)
+        log(f"  relax_ell {what} B={B}: kernel {ms:.4f} ms, plain "
+            f"{plain:.4f} ms (events); device {dt['kernel']:.4f} / "
+            f"{dt['plain']:.4f} ms; full rows {f_dev:.4f} ms (device); "
+            f"{live} live cells; bounds: live-cell {b_ms:.4f} ms ({b_by}), "
+            f"with the kernel's packed lanes {packed_ms:.4f} ms, padded "
+            f"layout {pad_ms:.4f} ms ({pad_by})")
+        record(rec, "relax_ell", f"{what} B={B}", ms, plain, None, dt, b_ms,
+               b_by, packed_bound_ms=packed_ms, padded_bound_ms=pad_ms,
+               full_rows_device_ms=f_dev)
+        return x, mask
+
+    # --- B3 on the grid side-1024 ELL ----------------------------------
+    ell = sssp.build_ell(n, src, dst, w, device=dev)
+    log(f"[kernels] grid ELL n_pad={ell.n_pad} deg_pad={ell.deg_pad}")
+    relax_timed("grid", ell, 1, seed=5)
+    del ell
+
     # --- B3 / B4 at the gnp 2^20 ELL shapes ----------------------------
     n, src, dst, w = gen.gnp(GNP_N, avg_deg=8.0, seed=0)
     ell = sssp.build_ell(n, src, dst, w, device=dev)
     log(f"[kernels] gnp n={n} e={len(src)} ELL n_pad={ell.n_pad} "
         f"deg_pad={ell.deg_pad}")
-    rng = np.random.default_rng(7)
     for B in (1, 8):
-        x = torch.from_numpy(rng.uniform(0, 50, (B, n)).astype(np.float32)
-                             ).to(dev)
-        x[torch.from_numpy(rng.random((B, n)) < 0.3).to(dev)] = inf
-        mask = torch.from_numpy(rng.random((B, n)) < 0.5).to(dev)
-        got = relax_ell(x, mask, ell.in_src, ell.in_w, n)
-        want = ref.relax_ell_ref(x, mask, ell.in_src, ell.in_w, n)
-        held("relax_ell", got, want, f"B={B} [{ell.n_pad}, {ell.deg_pad}]")
-        ms = time_ms(torch, lambda: relax_ell(x, mask, ell.in_src,
-                                              ell.in_w, n))
-        plain = time_ms(torch, lambda: ref.relax_ell_ref(
-            x, mask, ell.in_src, ell.in_w, n), reps=5, warmup=1)
-        dt = dict(kernel=device_ms(torch, lambda: relax_ell(
-            x, mask, ell.in_src, ell.in_w, n)), plain=device_ms(
-            torch, lambda: ref.relax_ell_ref(x, mask, ell.in_src, ell.in_w,
-                                             n), reps=5))
-        b_ms, b_by = bound(8 * n * ell.deg_pad + 9 * B * n,
-                           2 * B * n * ell.deg_pad)
-        log(f"  relax_ell B={B}: kernel {ms:.4f} ms, plain {plain:.4f} ms "
-            f"(events); device {dt['kernel']:.4f} / {dt['plain']:.4f} ms; "
-            f"bound {b_ms:.4f} ms ({b_by})")
-        record(rec, "relax_ell", f"B={B}", ms, plain, None, dt, b_ms, b_by)
+        x, mask = relax_timed("gnp", ell, B, seed=7 + B)
+        zeros = torch.zeros_like(x)
+        held("relax_ell", relax_ell(None, mask, ell.in_src, ell.in_w, n,
+                                    ell.row_len),
+             ref.relax_ell_ref(zeros, mask, ell.in_src, ell.in_w, n),
+             f"gnp B={B} x=None (inWeight_nf)")
         got = masked_min(x, mask)
         want = ref.masked_min_ref(x, mask)
         held("masked_min", got, want, f"B={B} n={n}")
         ms = time_ms(torch, lambda: masked_min(x, mask))
         plain = time_ms(torch, lambda: ref.masked_min_ref(x, mask))
         dt = dict(kernel=device_ms(torch, lambda: masked_min(x, mask)),
-                   plain=device_ms(torch, lambda: ref.masked_min_ref(x, mask)))
+                  plain=device_ms(torch, lambda: ref.masked_min_ref(x, mask)))
         b_ms, b_by = bound(5 * B * n + 4 * B, B * n)
         log(f"  masked_min B={B}: kernel {ms:.4f} ms, plain {plain:.4f} ms "
             f"(events); device {dt['kernel']:.4f} / {dt['plain']:.4f} ms; "
             f"bound {b_ms:.4f} ms ({b_by})")
         record(rec, "masked_min", f"B={B}", ms, plain, None, dt, b_ms, b_by)
-    # edge cases: empty masks, all-padding ELL rows, odd n
+    x3 = torch.rand((3, n), device=dev) * 9
+    m3 = torch.rand((3, n), device=dev) < 0.5
+    held("relax_ell", relax_ell(x3, m3, ell.in_src, ell.in_w, n, ell.row_len),
+         ref.relax_ell_ref(x3, m3, ell.in_src, ell.in_w, n),
+         "gnp B=3 (a ragged lane group)")
+    del ell
+    # edge cases: empty masks, all-padding ELL rows, odd n, a table with
+    # holes and a row longer than a thread group
     x = torch.rand((3, 1001), device=dev) * 9
     none = torch.zeros((3, 1001), dtype=torch.bool, device=dev)
     some = torch.rand((3, 1001), device=dev) < 0.4
@@ -358,12 +478,39 @@ def kernel_phase(torch, pt):
     keep = (s_src != s_dst) & (s_dst % 7 != 0)      # rows d%7==0: padding
     small = sssp.build_ell(1001, s_src[keep], s_dst[keep],
                            rng.uniform(0.05, 1, keep.sum()), device=dev)
-    held("relax_ell", relax_ell(x, some, small.in_src, small.in_w, 1001),
-         ref.relax_ell_ref(x, some, small.in_src, small.in_w, 1001),
-         "n=1001, empty lane, all-padding rows")
-    held("relax_ell", relax_ell(x, none, small.in_src, small.in_w, 1001),
+    for lanes in (3, 1):
+        xs, mk = x[:lanes].contiguous(), some[:lanes].contiguous()
+        held("relax_ell", relax_ell(xs, mk, small.in_src, small.in_w, 1001,
+                                    small.row_len),
+             ref.relax_ell_ref(xs, mk, small.in_src, small.in_w, 1001),
+             f"n=1001 B={lanes}, empty lane, all-padding rows")
+    held("relax_ell", relax_ell(x, none, small.in_src, small.in_w, 1001,
+                                torch.full_like(small.row_len, small.deg_pad)),
          ref.relax_ell_ref(x, none, small.in_src, small.in_w, 1001),
-         "n=1001, empty masks")
+         "n=1001, empty masks, full rows")
+    try:
+        relax_ell(x, some, small.in_src, small.in_w, 1001)
+        fail("relax_ell launched on the card without row_len")
+    except ValueError:
+        log("  relax_ell without row_len on the card: ValueError, as meant")
+    holes_src = np.full((1008, 128), 1001, np.int32)
+    holes_w = np.full((1008, 128), inf, np.float32)
+    for i in range(0, 1001, 3):
+        k = 19 if i % 2 else int(rng.integers(1, 6))   # > 8: several steps
+        cols = np.sort(rng.choice(128, k, replace=False))
+        holes_src[i, cols] = rng.integers(0, 1001, k)
+        holes_w[i, cols] = rng.uniform(0.05, 1, k)
+    h_len = torch.from_numpy(ell_row_len(holes_src, 1001)).to(dev)
+    h_src = torch.from_numpy(holes_src).to(dev)
+    h_w = torch.from_numpy(holes_w).to(dev)
+    for lanes in (1, 3):
+        xs, mk = x[:lanes].contiguous(), some[:lanes].contiguous()
+        held("relax_ell", relax_ell(xs, mk, h_src, h_w, 1001, h_len),
+             ref.relax_ell_ref(xs, mk, h_src, h_w, 1001),
+             f"n=1001 B={lanes}, holes, rows of 19 live cells")
+        held("relax_ell", relax_ell(None, mk, h_src, h_w, 1001, h_len),
+             ref.relax_ell_ref(torch.zeros_like(xs), mk, h_src, h_w, 1001),
+             f"n=1001 B={lanes}, holes, x=None")
     torch.cuda.synchronize()
     return rec
 
@@ -582,24 +729,28 @@ def main_path(torch, pt):
                                         "frontier")
     runs["grid/frontier"] = r = solve_timed(torch, solver, "grid frontier",
                                             s0, batch)
-    check(r["solve"]["launches"]["frontier_scatter_min_batch"] > 0 and
-          r["solve_batch"]["launches"]["frontier_scatter_min_batch"] > 0,
-          "the frontier route launched no scatter-min kernel")
+    check(r["solve"]["launches"]["frontier_relax_csr"] > 0 and
+          r["solve_batch"]["launches"]["frontier_relax_csr"] > 0,
+          "the frontier route launched no fused frontier relax")
     grid_front = r["solve"]["res"]
     against_scipy(torch, [grid_front.dist, r["solve_batch"]["res"].dist[1]],
                   n, src, dst, w, [s0, batch[1]], "grid frontier")
     check(torch.equal(r["solve_batch"]["res"].dist[0], grid_front.dist),
           "grid: batch lane 0 differs from the single solve")
-    # backends bitwise on the same graph
+    # backends bitwise on the same graph, launches counted
     for be in ("segment", "pallas"):
         other = sssp.Solver(g, backend=be)
         t0 = time.perf_counter()
-        res = other.solve(s0)
-        torch.cuda.synchronize()
-        log(f"  grid {be} solve: {(time.perf_counter() - t0) * 1e3:.1f} ms,"
-            f" rounds {res.rounds}")
+        res, lc = counted(torch, lambda: other.solve(s0))
+        ms = (time.perf_counter() - t0) * 1e3
+        log(f"  grid {be} solve: {ms:.1f} ms, rounds {res.rounds}, "
+            f"launches { {k: v for k, v in lc.items() if v} }")
+        runs[f"grid/{be}"] = {"solve": dict(res=res, ms=ms, launches=lc)}
         check(same(torch, res, grid_front), f"grid: {be} differs from "
                                             "frontier")
+        if be == "pallas":
+            check(lc["relax_ell"] > 0 and lc["masked_min"] > 0,
+                  "the grid pallas route launched no ELL kernel")
     log("  grid: segment, pallas and frontier bitwise identical "
         "(dist, C, fixed, rounds, fixed_by)")
     del solver, other, g
@@ -926,6 +1077,9 @@ KERNELS = {
     "frontier_scatter_min_batch": (
         "src/repro_torch/kernels/csrc/frontier_relax.cu",
         "src/repro/kernels/frontier_relax.py:78"),
+    "frontier_relax_csr": (
+        "src/repro_torch/kernels/csrc/frontier_relax.cu",
+        "src/repro/kernels/frontier_relax.py:78"),
     "relax_ell": ("src/repro_torch/kernels/csrc/relax.cu",
                   "src/repro/kernels/relax.py:44"),
     "masked_min": ("src/repro_torch/kernels/csrc/segment_min.cu",
@@ -989,8 +1143,7 @@ def main() -> int:
         profile_phase(torch, pt)
 
     main_launch = {k: 0 for k in KERNELS}
-    launch_runs = [r[kind]["launches"] for r in runs.values()
-                   for kind in ("solve", "solve_batch")]
+    launch_runs = [k["launches"] for r in runs.values() for k in r.values()]
     for lc in launch_runs + [xd_launch, attn_launch]:
         for k, v in lc.items():
             main_launch[k] += v

@@ -12,7 +12,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.graph import (CsrGraph, EllGraph, Graph,
-                                    resolve_device)
+                                    ell_row_len, resolve_device)
 
 
 def _arr(x, dtype, device) -> torch.Tensor:
@@ -42,11 +42,15 @@ def csr_from_arrays(c, device=None) -> CsrGraph:
 
 
 def ell_from_arrays(ell, device=None) -> EllGraph:
+    """The reference's ELL arrays, plus the port's ``row_len`` worked out
+    from ``in_src`` (the reference has none)."""
     device = resolve_device(device)
+    in_src = np.asarray(ell.in_src, np.int32)
     return EllGraph(
         n=int(ell.n), n_pad=int(ell.n_pad), deg_pad=int(ell.deg_pad),
-        in_src=_arr(ell.in_src, np.int32, device),
-        in_w=_arr(ell.in_w, np.float32, device))
+        in_src=_arr(in_src, np.int32, device),
+        in_w=_arr(ell.in_w, np.float32, device),
+        row_len=_arr(ell_row_len(in_src, int(ell.n)), np.int32, device))
 
 
 def xdeepfm_params_from_arrays(params, device=None) -> dict:

@@ -8,7 +8,9 @@ Layout is the reference's, array for array:
   * ``CsrGraph``: the src-sorted out-edge view of the frontier backend,
     with the ``in_indptr`` run table into the primary dst-sorted arrays.
   * ``EllGraph``: the dense padded in-neighbour form ``[n_pad, deg_pad]``
-    of the ELL/pallas backend (padding ``in_src = n``, ``in_w = +inf``).
+    of the ELL/pallas backend (padding ``in_src = n``, ``in_w = +inf``),
+    plus the port's ``row_len``: each row's live extent, so the relax
+    kernel reads no padding past a row's last live cell.
   * ``HostGraph``: numpy adjacency lists for the sequential oracles.
 
 Indices are stored as int32 for parity with the reference arrays; torch's
@@ -221,14 +223,17 @@ class EllGraph:
     and ``in_w[i, j]`` its weight (+inf padding).  Rows are padded to
     ``deg_pad`` (a multiple of ``lane``) and vertices to ``n_pad`` (a
     multiple of ``sublane``): the reference's TPU tiling, kept so the two
-    packages build the same arrays.
+    packages build the same arrays.  ``row_len[i]`` (port only) is one
+    past the last cell of row i with ``in_src < n``, 0 for a row with no
+    live cell: every cell at or beyond it is padding.
     """
 
     n: int
     n_pad: int
     deg_pad: int
-    in_src: torch.Tensor  # int32[n_pad, deg_pad]
-    in_w: torch.Tensor    # float32[n_pad, deg_pad]
+    in_src: torch.Tensor   # int32[n_pad, deg_pad]
+    in_w: torch.Tensor     # float32[n_pad, deg_pad]
+    row_len: torch.Tensor  # int32[n_pad]
 
     @property
     def device(self) -> torch.device:
@@ -261,8 +266,18 @@ def build_ell(n: int, src, dst, w, *, lane: int = 128, sublane: int = 8,
     slot = np.arange(len(d), dtype=np.int64) - row_start[d]
     in_src[d, slot] = src[order]
     in_w[d, slot] = w[order]
+    row_len = _pad_to(in_deg.astype(np.int32), n_pad, 0)  # left-packed
     return EllGraph(n=n, n_pad=n_pad, deg_pad=deg_pad,
-                    in_src=_t(in_src, device), in_w=_t(in_w, device))
+                    in_src=_t(in_src, device), in_w=_t(in_w, device),
+                    row_len=_t(row_len, device))
+
+
+def ell_row_len(in_src: np.ndarray, n: int) -> np.ndarray:
+    """int32[n_pad]: one past the last cell of each row with ``in_src <
+    n`` (0 for a row with none), for an ELL table in any cell order."""
+    live = np.asarray(in_src) < n
+    last = live.shape[1] - np.argmax(live[:, ::-1], axis=1)
+    return np.where(live.any(axis=1), last, 0).astype(np.int32)
 
 
 class HostGraph:

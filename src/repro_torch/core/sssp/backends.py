@@ -81,9 +81,7 @@ def ell_prims(g: Graph, ell: EllGraph) -> Primitives:
         return ops.relax_ell(x, ell, src_mask)
 
     def in_weight_nf(nf_mask):
-        zeros = torch.zeros(nf_mask.shape, dtype=torch.float32,
-                            device=nf_mask.device)
-        return ops.relax_ell(zeros, ell, nf_mask)
+        return ops.relax_ell(None, ell, nf_mask)
 
     return Primitives(relax=relax, in_weight_nf=in_weight_nf,
                       masked_min=ops.masked_min)

@@ -32,7 +32,10 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 SIGNATURES = {
     "frontier_scatter_min_batch": ("frontier_relax",
                                    (_P, _P, _P, _I, _L, _I, _P)),
-    "relax_ell": ("relax", (_P, _P, _P, _P, _P, _I, _I, _I, _P)),
+    "frontier_relax_csr": ("frontier_relax",
+                           (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
+    "relax_ell": ("relax", (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _P)),
     "masked_min": ("segment_min", (_P, _P, _P, _I, _I, _P)),
     "cin_layer": ("cin", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _I, _P)),
@@ -44,6 +47,7 @@ SOURCES = tuple(sorted({src for src, _ in SIGNATURES.values()}))
 LAUNCHES: dict[str, int] = {
     "frontier_scatter_min": 0,
     "frontier_scatter_min_batch": 0,
+    "frontier_relax_csr": 0,
     "relax_ell": 0,
     "masked_min": 0,
     "cin_layer": 0,
@@ -51,6 +55,7 @@ LAUNCHES: dict[str, int] = {
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
+_fns: dict[str, ctypes._CFuncPtr] = {}
 
 
 def reset_launch_counts() -> None:
@@ -117,7 +122,11 @@ def build_all(verbose: bool = False) -> float:
 
 
 def function(fn: str):
-    """The ctypes function ``fn`` of its library, building on first use."""
+    """The ctypes function ``fn`` of its library, building on first use
+    (bound once, so a wrapper's call costs one dict lookup here)."""
+    f = _fns.get(fn)
+    if f is not None:
+        return f
     src, argtypes = SIGNATURES[fn]
     if src not in _libs:
         build_all()
@@ -125,7 +134,19 @@ def function(fn: str):
     f = getattr(_libs[src], fn)
     f.argtypes = argtypes
     f.restype = ctypes.c_int
+    _fns[fn] = f
     return f
+
+
+def raw_stream(device) -> int:
+    """The handle of ``device``'s current CUDA stream, for a C launch.
+
+    ``torch.cuda.current_stream(device).cuda_stream`` gives the same
+    handle but builds a Stream object on every call, host time that a
+    wrapper pays on every launch (chip_smoke.py prints the fused frontier
+    wrapper's host cost)."""
+    import torch
+    return torch._C._cuda_getCurrentRawStream(device.index)
 
 
 def check(rc: int, what: str) -> None:

@@ -1,9 +1,12 @@
 """Frontier scatter-min wrappers (port of ``repro/kernels/frontier_relax.py``).
 
-``frontier_scatter_min_batch`` (B2) is the step-1 relax of the shared
-batch frontier; ``frontier_scatter_min`` (B1) is the same CUDA kernel at
-B = 1.  A CPU tensor goes to the plain version in ``ref.py``, a CUDA
-tensor to ``csrc/frontier_relax.cu``; anything else raises.
+``frontier_relax_csr`` is the step-1 relax of the shared batch frontier
+with its CSR gather fused in (B2; B1 at B = 1): what ``ops.frontier_relax_b``
+and ``ops.frontier_relax`` run.  ``frontier_scatter_min_batch`` (B2) and
+``frontier_scatter_min`` (B1) are the counterparts at the TPU kernels'
+own ``tgt``/``cand`` signature and share the fused entry's kernel body.
+A CPU tensor goes to the plain versions in ``ref.py``, a CUDA tensor to
+``csrc/frontier_relax.cu``; anything else raises.
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ def _launch(tgt: torch.Tensor, cand: torch.Tensor, n: int) -> torch.Tensor:
     out = torch.empty((B, n), dtype=torch.float32, device=cand.device)
     fn = _build.function("frontier_scatter_min_batch")
     with torch.cuda.device(cand.device):
-        stream = torch.cuda.current_stream(cand.device).cuda_stream
+        stream = _build.raw_stream(cand.device)
         rc = fn(tgt.data_ptr(), cand.data_ptr(), out.data_ptr(), B,
                 tgt.numel(), n, stream)
     _build.check(rc, "frontier_scatter_min_batch")
@@ -67,4 +70,53 @@ def frontier_scatter_min(tgt: torch.Tensor, cand: torch.Tensor,
         raise ValueError(f"no kernel for device {cand.device}")
     out = _launch(tgt, cand[None], n)[0]
     _build.count_launch("frontier_scatter_min")
+    return out
+
+
+_CSR_ARGS = (("f_idx", torch.int32, 1), ("indptr", torch.int32, 1),
+             ("dst", torch.int32, 1), ("w", torch.float32, 1),
+             ("x", torch.float32, 2), ("src_mask", torch.bool, 2))
+
+
+def frontier_relax_csr(x: torch.Tensor, src_mask: torch.Tensor,
+                       f_idx: torch.Tensor, indptr: torch.Tensor,
+                       dst: torch.Tensor, w: torch.Tensor,
+                       max_deg: int) -> torch.Tensor:
+    """Shared-frontier relax, CSR gather fused -> float32[B, n] (B2).
+
+    ``x`` float32[B, n] and ``src_mask`` bool[B, n] per lane, ``f_idx``
+    int32[cap] union frontier (padding ``n``), ``indptr`` int32[n + 1]
+    and ``dst``/``w`` [e_pad] the CSR view, ``max_deg`` its largest
+    out-degree.  ``out[b, t]`` is the min of ``x[b, u] + w`` over the
+    out-edges (u, t, w) of buffered u with ``src_mask[b, u]``, +inf where
+    none; every such sum must be ``>= +0.0`` or +inf.
+    """
+    args = (f_idx, indptr, dst, w, x, src_mask)
+    for (name, dt, dim), t in zip(_CSR_ARGS, args):
+        if t.dtype != dt or t.dim() != dim or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dim}-d {dt} "
+                             f"tensor, got {t.dtype} {tuple(t.shape)}")
+        if t.device != x.device:
+            raise ValueError(f"{name} on {t.device}, x on {x.device}")
+    B, n = x.shape
+    if (src_mask.shape != x.shape or indptr.shape[0] != n + 1
+            or w.shape != dst.shape):
+        raise ValueError(f"x {tuple(x.shape)}, src_mask "
+                         f"{tuple(src_mask.shape)}, indptr "
+                         f"{tuple(indptr.shape)}, dst {tuple(dst.shape)}, "
+                         f"w {tuple(w.shape)} do not fit")
+    if x.device.type == "cpu":
+        return ref.frontier_relax_ref(x, src_mask, f_idx, indptr, dst, w,
+                                      max_deg)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    out = torch.empty((B, n), dtype=torch.float32, device=x.device)
+    fn = _build.function("frontier_relax_csr")
+    with torch.cuda.device(x.device):
+        stream = _build.raw_stream(x.device)
+        rc = fn(f_idx.data_ptr(), indptr.data_ptr(), dst.data_ptr(),
+                w.data_ptr(), x.data_ptr(), src_mask.data_ptr(),
+                out.data_ptr(), B, f_idx.shape[0], max_deg, n, stream)
+    _build.check(rc, "frontier_relax_csr")
+    _build.count_launch("frontier_relax_csr")
     return out

@@ -42,6 +42,40 @@ def frontier_scatter_min_ref(tgt: torch.Tensor, cand: torch.Tensor,
     return frontier_scatter_min_batch_ref(tgt, cand[None], n)[0]
 
 
+def out_cells(indptr: torch.Tensor, f_idx: torch.Tensor, max_deg: int,
+              e_pad: int):
+    """The ``[cap, max_deg]`` out-edge table of the buffer ``f_idx`` over
+    the CSR run table ``indptr`` (n + 1 entries; padding slots carry
+    ``n``): clamped buffer ids, the live-cell mask and the clamped edge
+    positions into the ``e_pad``-long ``dst``/``w``."""
+    n = indptr.shape[0] - 1
+    u = f_idx.clamp(max=n - 1).long()
+    base = indptr[u]
+    deg = indptr[u + 1] - base
+    j = torch.arange(max_deg, dtype=torch.int32, device=f_idx.device)
+    cell = (f_idx < n)[:, None] & (j[None, :] < deg[:, None])
+    epos = (base[:, None] + j[None, :]).clamp(max=e_pad - 1).long()
+    return u, cell, epos
+
+
+def frontier_relax_ref(x: torch.Tensor, src_mask: torch.Tensor,
+                       f_idx: torch.Tensor, indptr: torch.Tensor,
+                       dst: torch.Tensor, w: torch.Tensor,
+                       max_deg: int) -> torch.Tensor:
+    """Shared-frontier relax -> float32[B, n]: the whole of
+    ``ops.frontier_relax_b``, the plain version of the fused CUDA entry.
+
+    One gather of the buffered vertices' out-edges, shared by the lanes
+    (``tgt``), lane b's candidates ``x[b, u] + w`` where ``src_mask[b,
+    u]`` (+inf elsewhere), then the batched scatter-min."""
+    n = x.shape[1]
+    u, cell, epos = out_cells(indptr, f_idx, max_deg, dst.shape[0])
+    tgt = torch.where(cell, dst[epos], n).to(torch.int32)
+    lane_ok = cell[None] & src_mask[:, u][:, :, None]
+    cand = torch.where(lane_ok, x[:, u][:, :, None] + w[epos][None], INF)
+    return frontier_scatter_min_batch_ref(tgt, cand, n)
+
+
 def relax_ell_ref(x: torch.Tensor, src_mask: torch.Tensor,
                   in_src: torch.Tensor, in_w: torch.Tensor,
                   n: int) -> torch.Tensor:

@@ -201,13 +201,26 @@ def test_cpu_calls_launch_no_kernel():
     assert _build.launch_counts() == before
 
 
+_C_TYPES = {"int": "int", "long long": "longlong"}
+
+
 def test_c_bindings_match_sources():
-    """Every exported function exists in its .cu with as many parameters
-    as its ctypes argtypes, returns int, and is built for sm_90a."""
+    """Every exported function exists in its .cu, returns int, and is
+    built for sm_90a; its C parameters, in order, match its ctypes
+    argtypes: pointers (and the stream) as c_void_p, int as c_int, long
+    long as c_longlong."""
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     for fn, (src, argtypes) in _build.SIGNATURES.items():
         text = (_build.CSRC / f"{src}.cu").read_text()
         m = re.search(r'extern "C" int ' + fn + r"\(([^)]*)\)", text)
         assert m, fn
-        assert len(m.group(1).split(",")) == len(argtypes), fn
+        params = [" ".join(p.split()) for p in m.group(1).split(",")]
+        assert len(params) == len(argtypes), fn
+        for p, t in zip(params, argtypes):
+            decl = p.rsplit(" ", 1)[0].replace("const ", "")
+            if "*" in p:
+                assert t is _build.ctypes.c_void_p, (fn, p)
+            else:
+                assert t is getattr(_build.ctypes, "c_" + _C_TYPES[decl]), \
+                    (fn, p)
     assert set(_build.LAUNCHES) >= set(_build.SIGNATURES)
