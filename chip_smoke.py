@@ -12,7 +12,9 @@ Phases, each failing the run (non-zero exit) if it fails:
  3. kernels: each CUDA kernel against its plain PyTorch version on the
     card at the main paths' shapes, the SSSP kernels on edge cases too
     (B3 also over full rows; the fused B2 beside the gather + tgt/cand
-    kernel it replaced on the main path),
+    kernel it replaced on the main path; B4 in its single form and as
+    the pair of minima a pallas round takes in one launch, beside
+    ``torch.masked.amin``),
     with tolerance 0 for the SSSP kernels (min, mask and one f32 add are
     exact), the reference's own for the CIN (3e-4) and f32 attention
     (2e-3), and two bf16 steps for bf16 attention (rtol 1.6e-2, atol
@@ -22,7 +24,8 @@ Phases, each failing the run (non-zero exit) if it fails:
     grid(side=1024) via "auto" (must route to frontier), gnp(2^20, 8) via
     "auto" (must route to segment) and via "pallas"; ``solve`` and an
     8-source ``solve_batch`` each, and the grid's segment and pallas
-    ``solve``, with the kernels' launch counts read around each run;
+    ``solve``, with the kernels' launch counts read around each run (the
+    pallas routes launch B4's pair exactly once a round);
     then distances against scipy's float64 Dijkstra, the backends
     bitwise against each other, and the card bitwise
     against the port's own CPU solve on 2^14-vertex graphs of the seven
@@ -215,7 +218,7 @@ def kernel_phase(torch, pt):
     from repro_torch.kernels.frontier_relax import (
         frontier_relax_csr, frontier_scatter_min, frontier_scatter_min_batch)
     from repro_torch.kernels.relax import relax_ell, xm_stride
-    from repro_torch.kernels.segment_min import masked_min
+    from repro_torch.kernels.segment_min import masked_min, masked_min_pair
     gen, sssp = pt["generators"], pt["sssp"]
     dev = torch.device(DEVICE)
     rec = {}
@@ -262,6 +265,7 @@ def kernel_phase(torch, pt):
         live = int(slot_deg.sum())
         b_ms, b_by = bound(12 * cap + 8 * live + 5 * B * cap + 4 * B * g.n,
                            B * live)
+        b_ms_fused, b_by_fused, plain_fused = b_ms, b_by, plain
         log(f"  frontier_relax_csr B={B} (ops.frontier_relax_b): fused "
             f"{ms:.4f} ms, plain {plain:.4f} ms, gather + tgt/cand kernel "
             f"{un_ms:.4f} ms (events); device {k_dev:.4f} / {p_dev:.4f} / "
@@ -296,7 +300,8 @@ def kernel_phase(torch, pt):
         plain = time_ms(torch, lambda: ref.frontier_scatter_min_batch_ref(
             tgt, cand, g.n))
         lib = time_ms(torch, library)
-        dt = dict(kernel=device_ms(torch, kern),
+        k_dev, k_ops = device_profile(torch, kern)
+        dt = dict(kernel=k_dev,
                   plain=device_ms(torch, lambda: ref.
                                   frontier_scatter_min_batch_ref(
                                       tgt, cand, g.n)),
@@ -307,10 +312,28 @@ def kernel_phase(torch, pt):
         log(f"  frontier_scatter_min_batch B={B}: kernel {ms:.4f} ms, "
             f"plain {plain:.4f} ms, full + scatter_reduce_ {lib:.4f} ms "
             f"(events); device {dt['kernel']:.4f} / {dt['plain']:.4f} / "
-            f"{dt['library']:.4f} ms; bound {b_ms:.4f} ms ({b_by})")
+            f"{dt['library']:.4f} ms; {k_ops:.1f} device ops a call; "
+            f"bound {b_ms:.4f} ms ({b_by})")
         record(rec, "frontier_scatter_min_batch", f"B={B}", ms, plain, lib,
-               dt, b_ms, b_by)
+               dt, b_ms, b_by, device_ops=k_ops)
         if B == 1:
+            # B1's fused op, as an engine path would call it (none does
+            # until A7): the fused entry at B = 1
+            x0, m0 = x[0].contiguous(), mask[0].contiguous()
+
+            def op1():
+                return ops.frontier_relax(x0, csr, f_idx, m0)
+            held("frontier_relax_csr", op1(), want[0],
+                 "B=1 ops.frontier_relax (B1 op)")
+            o_ms = time_ms(torch, op1)
+            o_dev, o_ops = device_profile(torch, op1)
+            log(f"  ops.frontier_relax B=1 (B1 op, fused entry): {o_ms:.4f} "
+                f"ms (events), device {o_dev:.4f} ms, {o_ops:.1f} device "
+                f"ops a call; wrapper host cost {o_ms - o_dev:.4f} ms")
+            record(rec, "frontier_scatter_min", "B=1 ops.frontier_relax "
+                   "(fused)", o_ms, plain_fused, None,
+                   dict(kernel=o_dev, plain=p_dev), b_ms_fused, b_by_fused,
+                   device_ops=o_ops)
             c0 = cand[0].contiguous()
             held("frontier_scatter_min", frontier_scatter_min(tgt, c0, g.n),
                  want[0], "B=1 (B1 wrapper)")
@@ -321,14 +344,16 @@ def kernel_phase(torch, pt):
                 return ref.frontier_scatter_min_ref(tgt, c0, g.n)
             ms1, pl1, lib1 = (time_ms(torch, k1), time_ms(torch, p1),
                               time_ms(torch, lambda: library(1)))
-            dt1 = dict(kernel=device_ms(torch, k1), plain=device_ms(torch, p1),
+            d1, d1_ops = device_profile(torch, k1)
+            dt1 = dict(kernel=d1, plain=device_ms(torch, p1),
                        library=device_ms(torch, lambda: library(1)))
             log(f"  frontier_scatter_min B=1: kernel {ms1:.4f} ms, plain "
                 f"{pl1:.4f} ms, full + scatter_reduce_ {lib1:.4f} ms "
                 f"(events); device {dt1['kernel']:.4f} / {dt1['plain']:.4f} "
-                f"/ {dt1['library']:.4f} ms")
+                f"/ {dt1['library']:.4f} ms; {d1_ops:.1f} device ops a call; "
+                f"wrapper host cost {ms1 - d1:.4f} ms")
             record(rec, "frontier_scatter_min", "B=1", ms1, pl1, lib1, dt1,
-                   b_ms, b_by)
+                   b_ms, b_by, device_ops=d1_ops)
     # fused edge cases: an all-padding buffer; n=1001 with a partial and a
     # full buffer (every vertex, then padding) and duplicate targets
     x2, m2, _ = frontier_inputs(torch, g, 2, cap, seed=3)
@@ -433,11 +458,53 @@ def kernel_phase(torch, pt):
     relax_timed("grid", ell, 1, seed=5)
     del ell
 
+    def b4_timed(x, mask, add):
+        """B4 at one shape, the single form and the pair on ``add``: held
+        before and after the timed calls (each call leaves the kernel's
+        tickets at 0 for the next), timed with the plain versions and
+        the library calls (``torch.masked.amin``, twice for the pair)."""
+        B, n = x.shape
+        amin = torch.masked.amin
+        forms = (
+            ("masked_min", lambda: masked_min(x, mask),
+             lambda: ref.masked_min_ref(x, mask),
+             lambda: amin(x, 1, mask=mask), "torch.masked.amin",
+             5 * B * n + 4 * B, B * n),
+            ("masked_min_pair", lambda: masked_min_pair(x, mask, add),
+             lambda: ref.masked_min_pair_ref(x, mask, add),
+             lambda: (amin(x, 1, mask=mask), amin(x + add, 1, mask=mask)),
+             "torch.masked.amin x2", 5 * B * n + 4 * n + 8 * B, 3 * B * n))
+        for name, kern, plain_fn, lib_fn, lib_name, nbytes, nops in forms:
+            want = plain_fn()
+            held(name, kern(), want, f"gnp B={B} n={n}")
+            lib_out = lib_fn()
+            if isinstance(lib_out, tuple):
+                lib_out = torch.stack(lib_out, dim=1)
+            check(torch.equal(lib_out, want), f"{lib_name} disagrees with "
+                                              f"{name}'s plain version")
+            ms = time_ms(torch, kern)
+            plain = time_ms(torch, plain_fn)
+            lib = time_ms(torch, lib_fn)
+            k_dev, k_ops = device_profile(torch, kern)
+            dt = dict(kernel=k_dev, plain=device_ms(torch, plain_fn),
+                      library=device_ms(torch, lib_fn))
+            held(name, kern(), want, f"gnp B={B} after the timed calls")
+            b_ms, b_by = bound(nbytes, nops)
+            log(f"  {name} B={B}: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+                f"{lib_name} {lib:.4f} ms (events); device {k_dev:.4f} / "
+                f"{dt['plain']:.4f} / {dt['library']:.4f} ms; {k_ops:.1f} "
+                f"device ops a call; wrapper host cost {ms - k_dev:.4f} ms; "
+                f"bound {b_ms:.4f} ms ({b_by})")
+            record(rec, name, f"B={B}", ms, plain, lib, dt, b_ms, b_by,
+                   device_ops=k_ops)
+
     # --- B3 / B4 at the gnp 2^20 ELL shapes ----------------------------
     n, src, dst, w = gen.gnp(GNP_N, avg_deg=8.0, seed=0)
     ell = sssp.build_ell(n, src, dst, w, device=dev)
+    out_w = sssp.build_graph(n, src, dst, w, device=dev).out_weight
     log(f"[kernels] gnp n={n} e={len(src)} ELL n_pad={ell.n_pad} "
-        f"deg_pad={ell.deg_pad}")
+        f"deg_pad={ell.deg_pad}; B4's add is the graph's outWeight "
+        f"({int(torch.isinf(out_w).sum())} +inf cells)")
     for B in (1, 8):
         x, mask = relax_timed("gnp", ell, B, seed=7 + B)
         zeros = torch.zeros_like(x)
@@ -445,24 +512,13 @@ def kernel_phase(torch, pt):
                                     ell.row_len),
              ref.relax_ell_ref(zeros, mask, ell.in_src, ell.in_w, n),
              f"gnp B={B} x=None (inWeight_nf)")
-        got = masked_min(x, mask)
-        want = ref.masked_min_ref(x, mask)
-        held("masked_min", got, want, f"B={B} n={n}")
-        ms = time_ms(torch, lambda: masked_min(x, mask))
-        plain = time_ms(torch, lambda: ref.masked_min_ref(x, mask))
-        dt = dict(kernel=device_ms(torch, lambda: masked_min(x, mask)),
-                  plain=device_ms(torch, lambda: ref.masked_min_ref(x, mask)))
-        b_ms, b_by = bound(5 * B * n + 4 * B, B * n)
-        log(f"  masked_min B={B}: kernel {ms:.4f} ms, plain {plain:.4f} ms "
-            f"(events); device {dt['kernel']:.4f} / {dt['plain']:.4f} ms; "
-            f"bound {b_ms:.4f} ms ({b_by})")
-        record(rec, "masked_min", f"B={B}", ms, plain, None, dt, b_ms, b_by)
+        b4_timed(x, mask, out_w)
     x3 = torch.rand((3, n), device=dev) * 9
     m3 = torch.rand((3, n), device=dev) < 0.5
     held("relax_ell", relax_ell(x3, m3, ell.in_src, ell.in_w, n, ell.row_len),
          ref.relax_ell_ref(x3, m3, ell.in_src, ell.in_w, n),
          "gnp B=3 (a ragged lane group)")
-    del ell
+    del ell, out_w
     # edge cases: empty masks, all-padding ELL rows, odd n, a table with
     # holes and a row longer than a thread group
     x = torch.rand((3, 1001), device=dev) * 9
@@ -473,6 +529,31 @@ def kernel_phase(torch, pt):
          "empty masks, n=1001")
     held("masked_min", masked_min(x, some), ref.masked_min_ref(x, some),
          "one empty lane, n=1001")
+    add = torch.rand(1001, device=dev) * 3
+    add[::7] = inf
+    for what, a in (("add with +inf cells", add),
+                    ("add all +inf", torch.full_like(add, inf)),
+                    ("add None", None)):
+        held("masked_min_pair", masked_min_pair(x, some, a),
+             ref.masked_min_pair_ref(x, some, a),
+             f"n=1001 B=3, one empty lane, {what}")
+    held("masked_min_pair", masked_min_pair(x, none, add),
+         ref.masked_min_pair_ref(x, none, add), "empty masks, n=1001")
+    # several blocks a lane, at n % 4 = 3 (each row starts at its own
+    # alignment; the pair's rows after the first are scalar), with x,
+    # mask and add one element into their storage (a scalar head, then
+    # float4 groups), and with x alone one element in (all scalar)
+    for n_b4, sx, sr in ((100_003, 0, 0), (100_000, 1, 1),
+                         (100_000, 1, 0)):
+        xs = (torch.rand(3 * n_b4 + sx, device=dev) * 9)[sx:].view(3, n_b4)
+        mk = (torch.rand(3 * n_b4 + sr, device=dev) < 0.3)[sr:].view(3, n_b4)
+        ad = (torch.rand(n_b4 + sr, device=dev) * 3)[sr:]
+        ad[::5] = inf
+        what = f"n={n_b4} B=3, shifted by x {sx}, mask and add {sr}"
+        held("masked_min", masked_min(xs, mk), ref.masked_min_ref(xs, mk),
+             what)
+        held("masked_min_pair", masked_min_pair(xs, mk, ad),
+             ref.masked_min_pair_ref(xs, mk, ad), what)
     s_src = rng.integers(0, 1001, 4000)
     s_dst = rng.integers(0, 1001, 4000)
     keep = (s_src != s_dst) & (s_dst % 7 != 0)      # rows d%7==0: padding
@@ -749,8 +830,11 @@ def main_path(torch, pt):
         check(same(torch, res, grid_front), f"grid: {be} differs from "
                                             "frontier")
         if be == "pallas":
-            check(lc["relax_ell"] > 0 and lc["masked_min"] > 0,
-                  "the grid pallas route launched no ELL kernel")
+            check(lc["relax_ell"] > 0
+                  and lc["masked_min_pair"] == res.rounds,
+                  f"the grid pallas route launched B4 "
+                  f"{lc['masked_min_pair']} times in {res.rounds} rounds "
+                  "(want one a round) or no ELL relax")
     log("  grid: segment, pallas and frontier bitwise identical "
         "(dist, C, fixed, rounds, fixed_by)")
     del solver, other, g
@@ -771,9 +855,11 @@ def main_path(torch, pt):
     runs["gnp/pallas"] = rp = solve_timed(torch, pal, "gnp pallas", s0,
                                           batch)
     for kind in ("solve", "solve_batch"):
-        lc = rp[kind]["launches"]
-        check(lc["relax_ell"] > 0 and lc["masked_min"] > 0,
-              f"the pallas route's {kind} launched no ELL kernel")
+        lc, rounds = rp[kind]["launches"], rp[kind]["rounds"]
+        check(lc["relax_ell"] > 0 and lc["masked_min_pair"] == rounds,
+              f"the gnp pallas {kind} launched B4 {lc['masked_min_pair']} "
+              f"times in {rounds} rounds (want one a round) or no ELL "
+              "relax")
     against_scipy(torch, [rs["solve"]["res"].dist,
                           rs["solve_batch"]["res"].dist[1]],
                   n, src, dst, w, [s0, batch[1]], "gnp segment")
@@ -1084,6 +1170,8 @@ KERNELS = {
                   "src/repro/kernels/relax.py:44"),
     "masked_min": ("src/repro_torch/kernels/csrc/segment_min.cu",
                    "src/repro/kernels/segment_min.py:33"),
+    "masked_min_pair": ("src/repro_torch/kernels/csrc/segment_min.cu",
+                        "src/repro/kernels/segment_min.py:33"),
     "cin_layer": ("src/repro_torch/kernels/csrc/cin.cu",
                   "src/repro/kernels/cin.py:42"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attn.cu",

@@ -8,8 +8,11 @@ ops; a backend is a concrete choice of them.  Every op is batch-first:
         (+inf where none): the relax, and the Eqn-(1) C-propagation.
     in_weight_nf(nf_mask)   [B, n] -> float32[B, n]
         min in-edge weight over sources in nf_mask.
-    masked_min(x, mask)     [B, n] x [B, n] -> float32[B]
-        per-lane min over masked vertices (the heap minimum of SP1-SP3).
+    masked_min_pair(x, mask, add)  [B, n] x [B, n] x [n] | None
+                            -> float32[B, 2]
+        per-lane min over masked vertices of x (the heap minimum of
+        SP1-SP3) and of x + add (the out-rule threshold; +inf if add is
+        None), both in one call.
     relax_frontier_b(x, f_idx, src_mask) -> float32[B, n]
         (frontier backend) the relax restricted to out-edges of the
         shared compacted buffer f_idx int32[frontier_cap] (padding n).
@@ -27,7 +30,7 @@ from typing import Callable
 import torch
 
 from repro_torch.core.graph import INF, CsrGraph, EllGraph, Graph
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,17 +39,14 @@ class Primitives:
 
     relax: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
     in_weight_nf: Callable[[torch.Tensor], torch.Tensor]
-    masked_min: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
+    masked_min_pair: Callable[[torch.Tensor, torch.Tensor,
+                               torch.Tensor | None], torch.Tensor]
     frontier_cap: int = 0           # static frontier-buffer size (0 = dense)
     walk_width: int = 1             # max_out_deg * max_in_deg: cells a
     #   walked source costs each lane in out_nbrs -> in_min_at
     relax_frontier_b: Callable | None = None
     out_nbrs: Callable | None = None
     in_min_at: Callable | None = None
-
-
-def _masked_min_local(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    return torch.where(mask, x, INF).amin(dim=-1)
 
 
 def segment_prims(g: Graph) -> Primitives:
@@ -64,17 +64,18 @@ def segment_prims(g: Graph) -> Primitives:
         return g.seg_min_at_dst(torch.where(ok, g.w, INF))
 
     return Primitives(relax=relax, in_weight_nf=in_weight_nf,
-                      masked_min=_masked_min_local)
+                      masked_min_pair=ref.masked_min_pair_ref)
 
 
 def ell_prims(g: Graph, ell: EllGraph) -> Primitives:
     """Dense padded in-neighbour (ELL) layout.
 
-    Every reduction is one call of the fused relax (B3) and every minimum
-    one call of the masked min (B4).  The reference's "ell" and "pallas"
-    backends differed only in running these as jnp or as Pallas kernels;
-    in the port both names run the same wrappers and the tensors' device
-    decides: the CUDA kernels on the card, the plain versions on the CPU.
+    Every reduction is one call of the fused relax (B3), and both minima
+    of a round are one call of the masked min pair (B4).  The reference's
+    "ell" and "pallas" backends differed only in running these as jnp or
+    as Pallas kernels; in the port both names run the same wrappers and
+    the tensors' device decides: the CUDA kernels on the card, the plain
+    versions on the CPU.
     """
 
     def relax(x, src_mask):
@@ -84,7 +85,7 @@ def ell_prims(g: Graph, ell: EllGraph) -> Primitives:
         return ops.relax_ell(None, ell, nf_mask)
 
     return Primitives(relax=relax, in_weight_nf=in_weight_nf,
-                      masked_min=ops.masked_min)
+                      masked_min_pair=ops.masked_min_pair)
 
 
 def frontier_prims(g: Graph, csr: CsrGraph, cap: int) -> Primitives:
@@ -93,7 +94,7 @@ def frontier_prims(g: Graph, csr: CsrGraph, cap: int) -> Primitives:
     Step 1 gathers only the out-edges of the (at most ``cap``) buffered
     vertices and scatter-mins them per lane through B2.  The dense
     segment primitives stay as the overflow fallback and the init-region
-    seeds; the minima are the plain masked min, as in the reference.
+    seeds; the minima are the plain masked min pair, as in the reference.
     """
     base = segment_prims(g)
 
@@ -107,7 +108,8 @@ def frontier_prims(g: Graph, csr: CsrGraph, cap: int) -> Primitives:
         return ops.in_min_at(g, csr, x, tgt, src_mask)
 
     return Primitives(relax=base.relax, in_weight_nf=base.in_weight_nf,
-                      masked_min=_masked_min_local, frontier_cap=int(cap),
+                      masked_min_pair=ref.masked_min_pair_ref,
+                      frontier_cap=int(cap),
                       walk_width=csr.max_out_deg * csr.max_in_deg,
                       relax_frontier_b=relax_frontier_b,
                       out_nbrs=out_nbrs, in_min_at=in_min_at)

@@ -290,8 +290,11 @@ def _round(g: Graph, cfg: SSSPConfig, state: SSSPState,
     discovered = D < INF
     active = discovered & ~fixed
 
-    # --- Step 2: the heap minima of SP1–SP3, then the fixing rules.
-    minD = prims.masked_min(D, active)[:, None]
+    # --- Step 2: the heap minimum of SP1–SP3 and the out-rule threshold
+    # (one call), then the fixing rules.
+    mins = prims.masked_min_pair(
+        D, active, g.out_weight if "out" in cfg.rules else None)
+    minD = mins[:, :1]
     new_fix = torch.zeros_like(fixed)
     rule_counts = []
 
@@ -314,8 +317,7 @@ def _round(g: Graph, cfg: SSSPConfig, state: SSSPState,
     else:
         rule_counts.append(zero)
     if "out" in cfg.rules:
-        threshold = prims.masked_min(D + g.out_weight, active)[:, None]
-        new_fix = new_fix | count(active & (D <= threshold))
+        new_fix = new_fix | count(active & (D <= mins[:, 1:]))
     else:
         rule_counts.append(zero)
 
@@ -404,8 +406,10 @@ def _round_shared(g: Graph, cfg: SSSPConfig, state: SSSPState,
     discovered = D < INF
     active = discovered & ~fixed
 
-    # --- Step 2: per-lane reductions + fixing rules ------------------
-    minD = prims.masked_min(D, active)[:, None]
+    # --- Step 2: per-lane reductions (one call) + fixing rules --------
+    mins = prims.masked_min_pair(
+        D, active, g.out_weight if "out" in cfg.rules else None)
+    minD = mins[:, :1]
     new_fix = torch.zeros_like(fixed)
     rule_counts = []
 
@@ -428,9 +432,7 @@ def _round_shared(g: Graph, cfg: SSSPConfig, state: SSSPState,
     else:
         rule_counts.append(zero)
     if "out" in cfg.rules:
-        threshold = prims.masked_min(D + g.out_weight[None, :],
-                                     active)[:, None]
-        new_fix = new_fix | count(active & (D <= threshold))
+        new_fix = new_fix | count(active & (D <= mins[:, 1:]))
     else:
         rule_counts.append(zero)
 

@@ -31,12 +31,15 @@ _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # returns the cudaError_t of its launches as an int.
 SIGNATURES = {
     "frontier_scatter_min_batch": ("frontier_relax",
-                                   (_P, _P, _P, _I, _L, _I, _P)),
+                                   (_P, _P, _P, _I, _L, _I, _I, _P)),
     "frontier_relax_csr": ("frontier_relax",
-                           (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P)),
+                           (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _P)),
     "relax_ell": ("relax", (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             _P)),
-    "masked_min": ("segment_min", (_P, _P, _P, _I, _I, _P)),
+    "masked_min": ("segment_min", (_P, _P, _P, _P, _P, _I, _L, _I, _I, _P)),
+    "masked_min_pair": ("segment_min",
+                        (_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P)),
     "cin_layer": ("cin", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _I, _P)),
     "flash_attention": ("flash_attn",
@@ -50,6 +53,7 @@ LAUNCHES: dict[str, int] = {
     "frontier_relax_csr": 0,
     "relax_ell": 0,
     "masked_min": 0,
+    "masked_min_pair": 0,
     "cin_layer": 0,
     "flash_attention": 0,
 }

@@ -8,15 +8,19 @@
 //
 // with one target table tgt[cells] shared by the B lanes and cells whose
 // target is outside [0, n) dropped.  frontier_scatter_min_batch takes
-// tgt and cand as the TPU kernel does.  frontier_relax_csr also does the
-// CSR gather that ops.frontier_relax_b did around it in PyTorch (23
-// device operations a call before the kernel's own 2): a thread takes
+// tgt and cand as the TPU kernel does (B1 is its B = 1).
+// frontier_relax_csr also does the CSR gather that ops.frontier_relax_b
+// did around it in PyTorch (23 device operations a call): a thread takes
 // one (frontier slot, out-edge j, lane b), loads u = f_idx[slot], the
 // edge t = dst[indptr[u] + j] and its weight, and folds x[b, u] + w into
-// out[b, t] where src_mask[b, u].  So a call is two
-// device operations, the +inf fill of the dense [B, n] output the engine
-// consumes and the scatter, and the [B, cap, max_out_deg] candidate
+// out[b, t] where src_mask[b, u], so the [B, cap, max_out_deg] candidate
 // table is never written.
+//
+// Each entry is one cooperative launch, one device operation: the grid
+// fills the dense [B, n] output with +inf (int4 stores), waits at
+// cooperative_groups' grid barrier, then scatters.  The grid is at most
+// what the card holds at once (occupancy x SMs), as a grid barrier needs,
+// and no larger than the work needs (see coop_blocks).
 //
 // The TPU kernel walks row blocks in grid order and carries each running
 // minimum in VMEM; CUDA blocks have no order, so each candidate is folded
@@ -35,18 +39,44 @@
 // vertex, written once) is most of them; the gathers are a few hundred
 // KB.  +inf candidates (padding and lane-masked cells) issue no atomic.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
+namespace cg = cooperative_groups;
+
 constexpr int kThreads = 256;
 constexpr int kInfBits = 0x7f800000;
+constexpr long long kFillPerBlock = 32768;  // +inf ints a block, at least
+constexpr int kMaxDevices = 64;
 
-__global__ void fill_inf_bits(int* __restrict__ out, long long count) {
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < count; i += (long long)gridDim.x * blockDim.x) {
-    out[i] = kInfBits;
+// Makes `device` current for one call's launch and restores the caller's
+// device after, so the wrapper needs no device context.
+struct DeviceGuard {
+  int prev = -1;
+  int dev;
+  explicit DeviceGuard(int d) : dev(d) {
+    cudaGetDevice(&prev);
+    if (prev != dev) cudaSetDevice(dev);
+  }
+  ~DeviceGuard() {
+    if (prev != dev) cudaSetDevice(prev);
+  }
+};
+
+// +inf into out_bits[0, count): int4 stores over the body (the output is
+// the wrapper's own allocation, 16-byte aligned), ints for count % 4.
+__device__ __forceinline__ void fill_inf(int* __restrict__ out_bits,
+                                         long long count, long long tid,
+                                         long long stride) {
+  const int4 inf4 = make_int4(kInfBits, kInfBits, kInfBits, kInfBits);
+  int4* o4 = reinterpret_cast<int4*>(out_bits);
+  const long long n4 = count >> 2;
+  for (long long i = tid; i < n4; i += stride) o4[i] = inf4;
+  for (long long i = 4 * n4 + tid; i < count; i += stride) {
+    out_bits[i] = kInfBits;
   }
 }
 
@@ -57,13 +87,12 @@ __device__ __forceinline__ void min_into(int* out_bits, float cand) {
   if (bits != kInfBits) atomicMin(out_bits, bits);
 }
 
-__global__ void scatter_min_batch(const int* __restrict__ tgt,
-                                  const float* __restrict__ cand,
-                                  int* __restrict__ out_bits, int lanes,
-                                  long long cells, int n) {
+__device__ __forceinline__ void scatter_cells(
+    const int* __restrict__ tgt, const float* __restrict__ cand,
+    int* __restrict__ out_bits, int lanes, long long cells, int n,
+    long long tid, long long stride) {
   const long long total = (long long)lanes * cells;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < total; i += (long long)gridDim.x * blockDim.x) {
+  for (long long i = tid; i < total; i += stride) {
     const long long b = i / cells;
     const long long c = i - b * cells;
     const int t = tgt[c];
@@ -74,17 +103,14 @@ __global__ void scatter_min_batch(const int* __restrict__ tgt,
 
 // Lanes fastest, so the threads of one cell share its f_idx, indptr, dst
 // and w loads.
-__global__ void relax_csr(const int* __restrict__ f_idx,
-                          const int* __restrict__ indptr,
-                          const int* __restrict__ dst,
-                          const float* __restrict__ w,
-                          const float* __restrict__ x,
-                          const bool* __restrict__ src_mask,
-                          int* __restrict__ out_bits, int lanes, int cap,
-                          int max_deg, int n) {
+__device__ __forceinline__ void relax_cells(
+    const int* __restrict__ f_idx, const int* __restrict__ indptr,
+    const int* __restrict__ dst, const float* __restrict__ w,
+    const float* __restrict__ x, const bool* __restrict__ src_mask,
+    int* __restrict__ out_bits, int lanes, int cap, int max_deg, int n,
+    long long tid, long long stride) {
   const long long total = (long long)cap * max_deg * lanes;
-  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-       i < total; i += (long long)gridDim.x * blockDim.x) {
+  for (long long i = tid; i < total; i += stride) {
     const long long cell = i / lanes;
     const int b = (int)(i - cell * lanes);
     const int slot = (int)(cell / max_deg);
@@ -101,33 +127,100 @@ __global__ void relax_csr(const int* __restrict__ f_idx,
   }
 }
 
-int blocks_for(long long count) {
-  long long blocks = (count + kThreads - 1) / kThreads;
-  if (blocks > 132LL * 32) blocks = 132LL * 32;  // grid-stride beyond this
-  return blocks < 1 ? 1 : (int)blocks;
+__global__ void __launch_bounds__(kThreads)
+fill_scatter_min_batch(const int* __restrict__ tgt,
+                       const float* __restrict__ cand,
+                       int* __restrict__ out_bits, int lanes,
+                       long long cells, int n) {
+  const long long tid = blockIdx.x * (long long)kThreads + threadIdx.x;
+  const long long stride = (long long)gridDim.x * kThreads;
+  fill_inf(out_bits, (long long)lanes * n, tid, stride);
+  cg::this_grid().sync();                   // every cell +inf first
+  scatter_cells(tgt, cand, out_bits, lanes, cells, n, tid, stride);
 }
 
-void fill_inf(int* out_bits, long long count, cudaStream_t s) {
-  if (count > 0) {
-    fill_inf_bits<<<blocks_for(count), kThreads, 0, s>>>(out_bits, count);
-  }
+__global__ void __launch_bounds__(kThreads)
+fill_relax_csr(const int* __restrict__ f_idx, const int* __restrict__ indptr,
+               const int* __restrict__ dst, const float* __restrict__ w,
+               const float* __restrict__ x, const bool* __restrict__ src_mask,
+               int* __restrict__ out_bits, int lanes, int cap, int max_deg,
+               int n) {
+  const long long tid = blockIdx.x * (long long)kThreads + threadIdx.x;
+  const long long stride = (long long)gridDim.x * kThreads;
+  fill_inf(out_bits, (long long)lanes * n, tid, stride);
+  cg::this_grid().sync();                   // every cell +inf first
+  relax_cells(f_idx, indptr, dst, w, x, src_mask, out_bits, lanes, cap,
+              max_deg, n, tid, stride);
 }
+
+// What the card holds of one kernel at once (occupancy x SMs, the most a
+// grid barrier allows) and its SM count, asked once per kernel and device.
+struct Residency {
+  int blocks = 0;
+  int sms = 0;
+};
+
+// Blocks of one cooperative launch over `out_count` output ints and
+// `cells` scatter threads: one block an SM, more where the fill has more
+// than kFillPerBlock ints a block or the scatter more than a thread a
+// cell, at most what the card holds.  The grid barrier's cost grows with
+// the blocks (tools/b1_fill_variants.py sweeps it), so the grid is no
+// larger than the work needs.
+cudaError_t coop_blocks(const void* kernel, Residency* cache, int device,
+                        long long out_count, long long cells, int* blocks) {
+  if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidDevice;
+  Residency& r = cache[device];
+  if (r.blocks == 0) {
+    int per_sm = 0;
+    cudaError_t e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, kThreads, 0);
+    if (e == cudaSuccess) {
+      e = cudaDeviceGetAttribute(&r.sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+    }
+    if (e != cudaSuccess) return e;
+    r.blocks = per_sm * r.sms;
+  }
+  long long want = r.sms;
+  const long long fill = (out_count + kFillPerBlock - 1) / kFillPerBlock;
+  const long long scatter = (cells + kThreads - 1) / kThreads;
+  if (fill > want) want = fill;
+  if (scatter > want) want = scatter;
+  *blocks = (int)(want < r.blocks ? want : r.blocks);
+  return cudaSuccess;
+}
+
+int coop_launch(const void* kernel, Residency* cache, int device,
+                long long out_count, long long cells, void** args,
+                void* stream) {
+  if (out_count <= 0) return 0;             // an empty output: no work
+  DeviceGuard guard(device);
+  int blocks = 0;
+  cudaError_t e = coop_blocks(kernel, cache, device, out_count, cells,
+                              &blocks);
+  if (e == cudaSuccess) {
+    e = cudaLaunchCooperativeKernel(kernel, dim3(blocks), dim3(kThreads),
+                                    args, 0,
+                                    static_cast<cudaStream_t>(stream));
+  }
+  const cudaError_t last = cudaGetLastError();
+  return (int)(e != cudaSuccess ? e : last);
+}
+
+Residency scatter_residency[kMaxDevices];
+Residency relax_residency[kMaxDevices];
 
 }  // namespace
 
 extern "C" int frontier_scatter_min_batch(const int* tgt, const float* cand,
                                           float* out, int lanes,
-                                          long long cells, int n,
+                                          long long cells, int n, int device,
                                           void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   int* out_bits = reinterpret_cast<int*>(out);
-  fill_inf(out_bits, (long long)lanes * n, s);
-  const long long total = (long long)lanes * cells;
-  if (total > 0 && n > 0) {
-    scatter_min_batch<<<blocks_for(total), kThreads, 0, s>>>(
-        tgt, cand, out_bits, lanes, cells, n);
-  }
-  return (int)cudaGetLastError();
+  void* args[] = {&tgt, &cand, &out_bits, &lanes, &cells, &n};
+  return coop_launch((const void*)fill_scatter_min_batch, scatter_residency,
+                     device, (long long)lanes * n, (long long)lanes * cells,
+                     args, stream);
 }
 
 // out[b, v] over x, src_mask [lanes, n], the frontier buffer f_idx[cap]
@@ -136,15 +229,12 @@ extern "C" int frontier_relax_csr(const int* f_idx, const int* indptr,
                                   const int* dst, const float* w,
                                   const float* x, const bool* src_mask,
                                   float* out, int lanes, int cap,
-                                  int max_deg, int n, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+                                  int max_deg, int n, int device,
+                                  void* stream) {
   int* out_bits = reinterpret_cast<int*>(out);
-  fill_inf(out_bits, (long long)lanes * n, s);
-  const long long total = (long long)cap * max_deg * lanes;
-  if (total > 0 && n > 0) {
-    relax_csr<<<blocks_for(total), kThreads, 0, s>>>(
-        f_idx, indptr, dst, w, x, src_mask, out_bits, lanes, cap, max_deg,
-        n);
-  }
-  return (int)cudaGetLastError();
+  void* args[] = {&f_idx, &indptr, &dst, &w, &x, &src_mask, &out_bits,
+                  &lanes, &cap, &max_deg, &n};
+  return coop_launch((const void*)fill_relax_csr, relax_residency, device,
+                     (long long)lanes * n, (long long)cap * max_deg * lanes,
+                     args, stream);
 }

@@ -31,9 +31,11 @@ def relax_ell(x: torch.Tensor | None, ell: EllGraph,
                             ell.row_len)
 
 
-def masked_min(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """float32[B]: per-lane min of ``x`` over ``mask`` (B4)."""
-    return _segmin.masked_min(x, mask)
+def masked_min_pair(x: torch.Tensor, mask: torch.Tensor,
+                    add: torch.Tensor | None) -> torch.Tensor:
+    """float32[B, 2]: per-lane min of ``x`` and of ``x + add`` over
+    ``mask`` (B4, one launch; column 1 +inf if ``add`` is None)."""
+    return _segmin.masked_min_pair(x, mask, add)
 
 
 def frontier_relax(x: torch.Tensor, csr: CsrGraph, f_idx: torch.Tensor,

@@ -102,13 +102,28 @@ def relax_ell_ref(x: torch.Tensor, src_mask: torch.Tensor,
 def masked_min_ref(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """Per-lane min over masked elements -> float32[B] (+inf if none).
 
-    The CUDA kernel shares the scatter-min's premise: every ``x`` is
-    ``>= +0.0`` or +inf (the engine's D and D + outWeight).
+    The CUDA kernel takes no NaN (the engine's D and D + outWeight are
+    ``>= +0.0`` or +inf).
     """
     if x.shape[-1] == 0:
         return torch.full(x.shape[:-1], INF, dtype=torch.float32,
                           device=x.device)
     return torch.where(mask, x, INF).amin(dim=-1)
+
+
+def masked_min_pair_ref(x: torch.Tensor, mask: torch.Tensor,
+                        add: torch.Tensor | None) -> torch.Tensor:
+    """Both minima of a round over one mask -> float32[B, 2]: column 0
+    ``masked_min_ref(x, mask)``, column 1 ``masked_min_ref(x + add,
+    mask)`` (+inf if ``add`` is None).  A min is exact and ``x + add``
+    one f32 add, so the kernel, which adds in its loop, is bitwise this.
+    The segment and frontier backends take their minima from this on
+    any device, as the reference took them in jnp there.
+    """
+    lo = masked_min_ref(x, mask)
+    hi = (torch.full_like(lo, INF) if add is None
+          else masked_min_ref(x + add, mask))
+    return torch.stack([lo, hi], dim=1)
 
 
 def cin_layer_ref(x_k: torch.Tensor, x_0: torch.Tensor,

@@ -2,7 +2,7 @@
 """Time the SSSP main path of one checkout of the port on one CUDA card,
 with nothing else in the process.
 
-    python3 tools/sssp_route_times.py [--src DIR] [--reps 6]
+    python3 tools/sssp_route_times.py [--src DIR] [--reps 6] [--pallas]
 
 Runs ``chip_smoke.py``'s main-path solves in its order and on its inputs:
 the grid side 1024 through "auto" (``solve``, ``solve_batch`` of 8) and
@@ -12,8 +12,10 @@ no check, and only the ``Solver`` interface is used, so the same script
 times two checkouts of the port (``--src``: a checkout's ``src``, by
 default this one's).  The gnp segment ``solve_batch`` runs ``--reps``
 times, then once more under torch.profiler for its device busy time.
-Prints the card's name and power limit, then one line a solve: host-clock
-ms around work that ends in a synchronize.
+``--pallas`` times the pallas route alone, on both graphs: ``solve`` and
+``solve_batch`` of 8, each ``--reps`` times.  Prints the card's name and
+power limit, then one line a solve: host-clock ms around work that ends
+in a synchronize.
 """
 from __future__ import annotations
 
@@ -32,6 +34,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--reps", type=int, default=6)
+    ap.add_argument("--pallas", action="store_true",
+                    help="time only the pallas route, on both graphs")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -59,6 +63,22 @@ def main() -> int:
         torch.cuda.synchronize()
         print(f"  {what}: {(time.perf_counter() - t0) * 1e3:.1f} ms",
               flush=True)
+
+    if args.pallas:
+        for what, make in (
+                ("grid", lambda: gen.grid(cs.GRID_SIDE, seed=0)),
+                ("gnp", lambda: gen.gnp(cs.GNP_N, avg_deg=8.0, seed=0))):
+            n, src, dst, w = make()
+            g = sssp.build_graph(n, src, dst, w, device=dev)
+            batch = [int(s) for s in rng.choice(n, 8, replace=False)]
+            solver = sssp.Solver(g, backend="pallas")
+            for i in range(args.reps):
+                timed(f"{what} pallas solve #{i + 1}",
+                      lambda: solver.solve(batch[0]))
+                timed(f"{what} pallas solve_batch #{i + 1}",
+                      lambda: solver.solve_batch(batch))
+            del solver, g
+        return 0
 
     n, src, dst, w = gen.grid(cs.GRID_SIDE, seed=0)
     g = sssp.build_graph(n, src, dst, w, device=dev)
