@@ -26,19 +26,33 @@ Phases, each failing the run (non-zero exit) if it fails:
     8-source ``solve_batch`` each, and the grid's segment and pallas
     ``solve``, with the kernels' launch counts read around each run (the
     pallas routes launch B4's pair exactly once a round);
-    then distances against scipy's float64 Dijkstra, the backends
-    bitwise against each other, and the card bitwise
-    against the port's own CPU solve on 2^14-vertex graphs of the seven
-    generator families;
- 5. xDeepFM scoring at the paper's FULL config (18.9 M table rows)
+    then distances against scipy's float64 Dijkstra and the backends
+    bitwise against each other;
+ 5. ``[dynamic]``: ``DynamicSolver`` at n = 2^20 (grid via "auto" ->
+    frontier, gnp via "auto" -> segment and via "pallas"): 8 tracked
+    sources, ``update`` after 1,024 random edge changes (and on gnp a
+    pure increase), ``resolve``, each held bitwise against a cold solve
+    of the mutated graph and against scipy, launches checked;
+    ``[p2p]``: ``LandmarkIndex(k=8)`` on gnp (segment) and the grid
+    (pallas), batches of 8 seeded targeted pairs (64 on gnp through
+    segment and pallas, 8 on the grid through frontier), every target
+    bitwise against the untargeted solve, every seed a lower bound up to
+    f32 rounding, then the gnp index's ``apply_delta``;
+    ``[parity]``: the card bitwise against the port's own CPU run on
+    2^14-vertex graphs of the seven generator families (cold batch,
+    warm update with its stats, seeded targeted batch), under torch's
+    sync debug mode;
+ 6. xDeepFM scoring at the paper's FULL config (18.9 M table rows)
     through ``repro_torch.models.xdeepfm.XDeepFM``: the ``serve_p99``
     (B = 512), ``serve_bulk`` (B = 262,144) and ``retrieval_cand`` (1
     query, 10^6 candidates) workloads, timed, 3 CIN launches a forward,
     checked against the port's CPU forward and against smaller batches,
     and each CIN layer of the forwards against its plain version in
     float64;
- 6. attention entry point: one ``ops.flash_attention`` call at a
+ 7. attention entry point: one ``ops.flash_attention`` call at a
     qwen3-32b layer's shape, its launches counted.
+
+Each phase prints its wall time.
 
 The line before the last is the kernels' JSON record, one entry a kernel
 with each timed shape under ``shapes`` (and, for the split-f32 kernels,
@@ -70,6 +84,10 @@ GRID_SIDE = 1024              # grid(side=1024): n = 2^20, 4.2 M edges
 GNP_N = 1 << 20               # gnp(2^20, avg_deg=8): 8.4 M edges
 FRONTIER_CAP = 4096           # the Solver's default cap at n = 2^20
 PARITY_N = 1 << 14            # card vs CPU parity graphs
+# a landmark seed is a difference of two f32 path sums, each of which may
+# be off by about (hops x 6e-8) of its value: a seed may pass the f32
+# distance by that much, held to 1e-4 of the largest finite table entry
+SEED_TOL = 1e-4
 CIN_SHAPE = dict(B=512, M=39, D=10, K=200)    # serve_p99, paper widths
 # one qwen3-32b attention layer: 64 query heads, 8 KV heads, head_dim 128
 ATTN_SHAPE = dict(B=1, H=64, H_KV=8, S=4096, d=128)
@@ -876,53 +894,315 @@ def main_path(torch, pt):
     return runs
 
 
+def sync_debugged(torch, fn):
+    """``fn()`` on the card under torch's sync debug mode; returns its
+    result, the launch counts of the run and the host syncs the engine
+    does not count (``SyncCounter.read`` lifts the debug mode for its own
+    reads, so every flagged call is one of those)."""
+    from repro_torch.kernels import _build
+    _build.reset_launch_counts()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    hidden = sorted({f"{Path(c.filename).name}:{c.lineno}" for c in caught
+                     if "synchroniz" in str(c.message)})
+    launches = {k: v for k, v in _build.launch_counts().items() if v}
+    return out, launches, hidden
+
+
+def same_batch(torch, a, b) -> bool:
+    """Two batch results bitwise equal: dist, C, fixed, rounds, fixed_by
+    and, where there is one, edges_relaxed."""
+    return (torch.equal(a.dist.cpu(), b.dist.cpu())
+            and torch.equal(a.C.cpu(), b.C.cpu())
+            and torch.equal(a.fixed.cpu(), b.fixed.cpu())
+            and np.array_equal(a.rounds, b.rounds)
+            and a.fixed_by == b.fixed_by
+            and (a.edges_relaxed is None
+                 or np.array_equal(a.edges_relaxed, b.edges_relaxed)))
+
+
 def cpu_parity_phase(torch, pt):
     """The card's solves equal the port's CPU solves (plain versions)
     bitwise on 2^14-vertex graphs of every family, on the auto route and
-    the pallas route.  The card's solves run under torch's sync debug
-    mode, which names every host sync the engine's own count misses."""
+    the pallas route: a cold ``solve_batch``, then a warm update of 64
+    random edges (its stats too: sweeps, tainted, warm rounds, host
+    reads) and the resolved rows, then a targeted ``solve_batch`` seeded
+    from the card's 4-landmark index (the same seeds on both sides).
+    The card's runs go under torch's sync debug mode, which names every
+    host sync the engine's own count misses."""
     gen, sssp = pt["generators"], pt["sssp"]
-    from repro_torch.kernels import _build
     n = PARITY_N
     for family in gen.FAMILIES:
         nn, src, dst, w = gen.make(family, n, seed=1)
         g_cpu = sssp.build_graph(nn, src, dst, w, device="cpu")
         g_gpu = g_cpu.to(DEVICE)
-        sources = [0, nn // 2]
+        sources, targets = [0, nn // 2], [nn - 1, nn // 3]
+        c0_gpu = sssp.LandmarkIndex(g_gpu, k=4, seed=1).seed_batch(sources)
+        c0_cpu = c0_gpu.cpu()      # the same seeds for both runs
         for be in ("auto", "pallas"):
-            s_gpu = sssp.Solver(g_gpu, backend=be)
-            s_cpu = sssp.Solver(g_cpu, backend=be, device="cpu")
-            _build.reset_launch_counts()
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                torch.cuda.set_sync_debug_mode("warn")
-                try:
-                    a = s_gpu.solve_batch(sources)
-                finally:
-                    torch.cuda.set_sync_debug_mode("default")
-            # SyncCounter.read lifts the debug mode for its own reads, so
-            # every flagged call is a host sync the engine does not count
-            hidden = sorted({f"{Path(c.filename).name}:{c.lineno}"
-                             for c in caught
-                             if "synchroniz" in str(c.message)})
-            launches = {k: v for k, v in _build.launch_counts().items() if v}
+            s_gpu = sssp.DynamicSolver(g_gpu, backend=be)
+            s_cpu = sssp.DynamicSolver(g_cpu, backend=be, device="cpu")
+            d_gpu = sssp.random_delta(g_gpu, 64, seed=5)
+            d_cpu = sssp.random_delta(g_cpu, 64, seed=5)
+            what = f"{family}/{s_gpu.backend}"
+
+            def card_runs():
+                cold = s_gpu.solve_batch(sources)
+                stats = s_gpu.update(d_gpu)
+                warm = s_gpu.resolve(sources)
+                p2p = s_gpu.solve_batch(sources, targets=targets, C0=c0_gpu)
+                return cold, stats, warm, p2p
+            (a, st_a, wa, pa), launches, hidden = sync_debugged(torch,
+                                                                card_runs)
             b = s_cpu.solve_batch(sources)
-            ok = (torch.equal(a.dist.cpu(), b.dist)
-                  and torch.equal(a.C.cpu(), b.C)
-                  and torch.equal(a.fixed.cpu(), b.fixed)
-                  and np.array_equal(a.rounds, b.rounds)
-                  and a.fixed_by == b.fixed_by
-                  and (a.edges_relaxed is None
-                       or np.array_equal(a.edges_relaxed, b.edges_relaxed)))
-            log(f"  {family:10s} {s_gpu.backend:8s} card == cpu: {ok} "
-                f"(rounds {a.rounds.tolist()}, launches {launches}, "
-                f"host syncs {a.host_syncs}, uncounted {hidden})")
-            check(ok, f"{family}/{s_gpu.backend}: card and CPU differ")
-            check(not hidden, f"{family}/{s_gpu.backend}: host syncs the "
-                              f"engine does not count at {hidden}")
+            st_b = s_cpu.update(d_cpu)
+            wb = s_cpu.resolve(sources)
+            pb = s_cpu.solve_batch(sources, targets=targets, C0=c0_cpu)
+            ok = same_batch(torch, a, b)
+            ok_warm = st_a == st_b and same_batch(torch, wa, wb)
+            ok_p2p = same_batch(torch, pa, pb) and pa.partial
+            log(f"  {family:10s} {s_gpu.backend:8s} card == cpu: cold "
+                f"{ok}, warm {ok_warm}, seeded targeted {ok_p2p} (rounds "
+                f"{a.rounds.tolist()} / warm {st_a['warm_rounds']}, sweeps "
+                f"{st_a['sweeps']}, tainted {st_a['tainted']} / targeted "
+                f"{pa.rounds.tolist()}; host syncs {a.host_syncs} / "
+                f"{st_a['host_syncs']} / {pa.host_syncs}; launches "
+                f"{launches}, uncounted {hidden})")
+            check(ok, f"{what}: card and CPU differ")
+            check(ok_warm, f"{what}: the warm update differs card to CPU "
+                           f"({st_a} against {st_b})")
+            check(ok_p2p, f"{what}: the seeded targeted batch differs card "
+                          "to CPU")
+            check(not hidden, f"{what}: host syncs the engine does not "
+                              f"count at {hidden}")
             if s_gpu.backend in ("frontier", "pallas"):
-                check(bool(launches), f"{family}/{s_gpu.backend}: no "
-                                      "kernel launched")
+                check(bool(launches), f"{what}: no kernel launched")
+
+
+def timed_run(torch, fn):
+    """``fn()`` once on the host clock, ending in a synchronize, with every
+    launch count set to 0 just before and read just after: (its result,
+    ms, the counts)."""
+    from repro_torch.kernels import _build
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3, _build.launch_counts()
+
+
+def nonzero(lc) -> dict:
+    return {k: v for k, v in lc.items() if v}
+
+
+def dynamic_phase(torch, pt):
+    """Warm re-solves at n = 2^20 through ``DynamicSolver``: grid side
+    1024 via "auto" (frontier), gnp 2^20 via "auto" (segment) and via
+    "pallas".  Per route: a cold ``solve_batch`` of 8 sources (tracked),
+    ``update`` with 1,024 random edges rescaled by uniform[0.5, 2.0]
+    (seed 11), then ``resolve``; on gnp also a pure increase of the same
+    edges (x uniform[1.0, 2.0]).  Each resolved batch is held bitwise
+    (dist, fixed) against a cold ``Solver`` on the mutated graph and two
+    sources against scipy on the mutated arrays; the frontier update
+    must launch the fused frontier relax, a pallas update ``relax_ell``
+    and one ``masked_min_pair`` a warm round.  Returns the launch counts
+    of every counted run."""
+    gen, sssp = pt["generators"], pt["sssp"]
+    dev = torch.device(DEVICE)
+    runs = []
+    routes = (("grid", gen.grid(GRID_SIDE, seed=0), "auto", "frontier"),
+              ("gnp", gen.gnp(GNP_N, avg_deg=8.0, seed=0), "auto",
+               "segment"),
+              ("gnp", None, "pallas", "pallas"))
+    g = None
+    for name, arrays, be, want in routes:
+        if arrays is not None:
+            n, src, dst, w = arrays
+            g = sssp.build_graph(n, src, dst, w, device=dev)
+        e = g.e
+        sources = [int(v) for v in np.random.default_rng(2024).choice(
+            n, 8, replace=False)]
+        dyn = sssp.DynamicSolver(g, backend=be)
+        what = f"{name} {dyn.backend}"
+        check(dyn.backend == want, f"[dynamic] {name}: {be} routed to "
+                                   f"{dyn.backend}, not {want}")
+        cold0, cold0_ms, lc = timed_run(torch,
+                                        lambda: dyn.solve_batch(sources))
+        runs.append(lc)
+        log(f"  {what}: cold solve_batch(8) {cold0_ms:.1f} ms, rounds "
+            f"{int(cold0.rounds.max())}, launches {nonzero(lc)}")
+        delta = sssp.random_delta(g, 1024, seed=11)
+        kinds = ("mixed x[0.5, 2.0]",) + (
+            ("pure increase x[1.0, 2.0]",) if name == "gnp" else ())
+        for kind in kinds:
+            d = delta
+            if kind.startswith("pure"):   # the same edges, each up from
+                idx = delta.edge_idx[: delta.k].cpu().numpy()   # its
+                old = dyn.graph.w[:e].cpu().numpy()[idx]   # current weight
+                d = sssp.make_delta(dyn.graph, idx, old * np.random.
+                                    default_rng(12).uniform(
+                                        1.0, 2.0, delta.k).astype(np.float32))
+            stats, up_ms, lc = timed_run(torch, lambda: dyn.update(d))
+            runs.append(lc)
+            res, res_ms, _ = timed_run(torch, lambda: dyn.resolve(sources))
+            cold_solver = sssp.Solver(dyn.graph, backend=be)
+            cold, cold_ms, lc_cold = timed_run(
+                torch, lambda: cold_solver.solve_batch(sources))
+            runs.append(lc_cold)
+            wr = max(stats["warm_rounds"])
+            log(f"  {what} update ({kind}, {d.k} edges of {e}, "
+                f"{stats['increased']} up / {stats['decreased']} down): "
+                f"{up_ms:.1f} ms against a cold solve_batch(8) of the "
+                f"mutated graph {cold_ms:.1f} ms; warm rounds {wr} "
+                f"({stats['warm_rounds']}) against cold "
+                f"{int(cold.rounds.max())}, sweeps {stats['sweeps']}, "
+                f"tainted {stats['tainted']}, host reads "
+                f"{stats['host_syncs']}; resolve {res_ms:.1f} ms; launches "
+                f"{nonzero(lc)}")
+            check(stats["warm_refreshed"] == 8 and stats["cold_refreshed"]
+                  == 0, f"[dynamic] {what}: {stats}")
+            if kind.startswith("pure"):
+                check(stats["decreased"] == 0, "[dynamic] the pure "
+                                               "increase decreased an edge")
+            check(torch.equal(res.dist, cold.dist)
+                  and torch.equal(res.fixed, cold.fixed),
+                  f"[dynamic] {what} ({kind}): the warm rows differ from "
+                  "a cold solve of the mutated graph")
+            w_new = dyn.graph.w[:e].cpu().numpy()
+            against_scipy(torch, [res.dist[0], res.dist[1]], n,
+                          g.src[:e].cpu().numpy(), g.dst[:e].cpu().numpy(),
+                          w_new, sources[:2], f"{what} after the update")
+            if dyn.backend == "frontier":
+                check(lc["frontier_relax_csr"] > 0, "[dynamic] the frontier "
+                      "update launched no fused frontier relax")
+            if dyn.backend == "pallas":
+                check(lc["relax_ell"] > 0 and lc["masked_min_pair"] == wr,
+                      f"[dynamic] the pallas update launched B4 "
+                      f"{lc['masked_min_pair']} times in {wr} warm rounds "
+                      "(want one a round) or no ELL relax")
+        del dyn, cold_solver
+    del g
+    torch.cuda.empty_cache()
+    return runs
+
+
+def p2p_phase(torch, pt):
+    """Landmark-seeded targeted queries at n = 2^20.  gnp: an 8-landmark
+    index on its default segment backend, 64 (s, t) pairs (seed 2024) in
+    batches of 8 through "auto" (segment) and "pallas", each batch
+    untargeted, targeted and seeded-targeted; grid side 1024: an index on
+    the pallas backend, then 8 seeded targeted pairs through "auto"
+    (frontier).  Every lane's target distance is held bitwise against the
+    untargeted solve, fixed, the batch stamped partial, and every seed
+    <= the full distances.  Then the gnp index takes the [dynamic] gnp
+    delta; its refreshed tables are held bitwise against cold solves of
+    the mutated graph and of its reverse.  Returns the launch counts of
+    every counted run."""
+    gen, sssp = pt["generators"], pt["sssp"]
+    dev = torch.device(DEVICE)
+    runs = []
+    plan = (("gnp", gen.gnp(GNP_N, avg_deg=8.0, seed=0), "segment", 64,
+             ("auto", "pallas")),
+            ("grid", gen.grid(GRID_SIDE, seed=0), "pallas", 8, ("auto",)))
+    for name, (n, src, dst, w), index_be, pairs, routes in plan:
+        g = sssp.build_graph(n, src, dst, w, device=dev)
+        rng = np.random.default_rng(2024)
+        s_all = rng.choice(n, pairs, replace=False).astype(np.int64)
+        t_all = rng.choice(n, pairs, replace=False).astype(np.int64)
+        index, build_ms, lc = timed_run(
+            torch, lambda: sssp.LandmarkIndex(g, k=8, backend=index_be))
+        runs.append(lc)
+        tables = torch.cat([index.d_from, index.d_to])
+        scale = float(tables[torch.isfinite(tables)].max())
+        log(f"  {name}: LandmarkIndex(k=8, backend={index_be!r}) built in "
+            f"{build_ms:.1f} ms (landmarks {index.landmarks.tolist()}), "
+            f"launches {nonzero(lc)}")
+        for be in routes:
+            solver = sssp.Solver(g, backend=be)
+            what = f"{name} {solver.backend}"
+            tot = {k: [0.0, 0] for k in ("untargeted", "targeted",
+                                         "seeded targeted", "seeds")}
+            for lo in range(0, pairs, 8):
+                sb, tb = s_all[lo:lo + 8], t_all[lo:lo + 8]
+                c0, seed_ms, _ = timed_run(torch,
+                                           lambda: index.seed_batch(sb))
+                tot["seeds"][0] += seed_ms
+                got = {}
+                for kind, kw in (("untargeted", {}),
+                                 ("targeted", dict(targets=tb)),
+                                 ("seeded targeted", dict(targets=tb,
+                                                          C0=c0))):
+                    res, ms, lc = timed_run(
+                        torch, lambda: solver.solve_batch(sb, **kw))
+                    runs.append(lc)
+                    r = int(res.rounds.max())
+                    tot[kind][0] += ms
+                    tot[kind][1] += r
+                    got[kind] = res
+                    if solver.backend == "pallas":
+                        check(lc["relax_ell"] > 0
+                              and lc["masked_min_pair"] == r,
+                              f"[p2p] {what} {kind}: B4 launched "
+                              f"{lc['masked_min_pair']} times in {r} rounds")
+                    if solver.backend == "frontier":
+                        check(lc["frontier_relax_csr"] > 0, f"[p2p] {what} "
+                              "launched no fused frontier relax")
+                full = got["untargeted"]
+                lanes = torch.arange(len(sb), device=dev)
+                tt = torch.as_tensor(tb, device=dev)
+                for kind in ("targeted", "seeded targeted"):
+                    res = got[kind]
+                    check(res.partial and torch.equal(
+                        res.dist[lanes, tt], full.dist[lanes, tt]),
+                        f"[p2p] {what} {kind}: a target distance differs "
+                        "from the untargeted solve")
+                    check(bool((res.fixed[lanes, tt]
+                                | torch.isinf(full.dist[lanes, tt])).all()),
+                          f"[p2p] {what} {kind}: a target is not fixed")
+                over = (c0 - full.dist)[torch.isfinite(full.dist)]
+                tot["over"] = max(tot.get("over", 0.0), float(over.max()))
+                tot["n_over"] = tot.get("n_over", 0) + int((over > 0).sum())
+                check(bool((c0 <= full.dist + SEED_TOL * scale).all()),
+                      f"[p2p] {what}: a landmark seed exceeds the distance "
+                      f"by more than {SEED_TOL:g} of the tables' scale")
+            nb = pairs // 8
+            log(f"  {what}: {pairs} pairs in {nb} batches of 8; seeds "
+                f"{tot['seeds'][0] / nb:.2f} ms a batch; " + "; ".join(
+                    f"{k} {tot[k][0] / nb:.1f} ms, {tot[k][1] / nb:.1f} "
+                    f"rounds a batch" for k in ("untargeted", "targeted",
+                                                "seeded targeted"))
+                + "; every target bitwise and fixed; seeds above the f32 "
+                f"distance: {tot['n_over']} of {pairs * n:,}, by at most "
+                f"{tot['over']:.3e} = {tot['over'] / scale:.3e} of the "
+                f"tables' largest entry {scale:.1f} (tolerance "
+                f"{SEED_TOL:g})")
+            del solver
+        if name == "gnp":
+            delta = sssp.random_delta(g, 1024, seed=11)
+            stats, ms, lc = timed_run(torch, lambda: index.apply_delta(delta))
+            runs.append(lc)
+            lms = [int(v) for v in index.landmarks]
+            g2 = index._fwd.graph
+            fwd = sssp.Solver(g2, backend="segment").solve_batch(lms)
+            rev = sssp.Solver(g2.reverse(), backend="segment").solve_batch(
+                lms)
+            ok = (torch.equal(index.d_from, fwd.dist)
+                  and torch.equal(index.d_to, rev.dist))
+            log(f"  gnp index.apply_delta (1024 edges): {ms:.1f} ms, reverse "
+                f"warm rounds {stats['warm_rounds']}, sweeps "
+                f"{stats['sweeps']}; tables == cold solves of the mutated "
+                f"graph and its reverse: {ok}")
+            check(ok, "[p2p] the refreshed landmark tables differ from cold "
+                      "solves of the mutated graph")
+        del index, g
+        torch.cuda.empty_cache()
+    return runs
 
 
 def profile_phase(torch, pt, rounds: int = 400):
@@ -1219,20 +1499,31 @@ def main() -> int:
     model_kernel_phase(torch, rec)
     # launch counts: set to 0 right before each main-path run and read
     # right after (solve_timed, counted)
-    runs = main_path(torch, pt)
-    log("[parity] card vs the port's CPU solve, 2^14 vertices")
-    cpu_parity_phase(torch, pt)
-    log("[xdeepfm] scoring at the FULL config")
-    xd_launch = xdeepfm_phase(torch)
-    log("[attention] the ops.flash_attention entry point")
-    attn_launch = attention_entry_phase(torch)
+    def phase(tag, what, fn):
+        log(f"[{tag}] {what}")
+        t0 = time.perf_counter()
+        out = fn()
+        log(f"[{tag}] phase took {time.perf_counter() - t0:.1f} s")
+        return out
+    runs = phase("main", "the SSSP main path, n = 2^20",
+                 lambda: main_path(torch, pt))
+    runs_dyn = phase("dynamic", "warm re-solves after a weight delta, n = "
+                     "2^20", lambda: dynamic_phase(torch, pt))
+    runs_p2p = phase("p2p", "landmark-seeded targeted queries, n = 2^20",
+                     lambda: p2p_phase(torch, pt))
+    phase("parity", "card vs the port's CPU solve, 2^14 vertices",
+          lambda: cpu_parity_phase(torch, pt))
+    xd_launch = phase("xdeepfm", "scoring at the FULL config",
+                      lambda: xdeepfm_phase(torch))
+    attn_launch = phase("attention", "the ops.flash_attention entry point",
+                        lambda: attention_entry_phase(torch))
     if args.profile:
         log("[profile] torch.profiler over the first rounds of each route")
         profile_phase(torch, pt)
 
     main_launch = {k: 0 for k in KERNELS}
     launch_runs = [k["launches"] for r in runs.values() for k in r.values()]
-    for lc in launch_runs + [xd_launch, attn_launch]:
+    for lc in launch_runs + runs_dyn + runs_p2p + [xd_launch, attn_launch]:
         for k, v in lc.items():
             main_launch[k] += v
     kernels = []

@@ -3,8 +3,10 @@
 Each graph function reads the fields of a reference ``Graph``/
 ``CsrGraph``/``EllGraph`` (duck-typed: anything with those attributes,
 read through ``np.asarray``) and builds the port's container from the
-same arrays; ``xdeepfm_params_from_arrays`` does the same for a
-parameter tree.  So both packages can be run on identical inputs.
+same arrays; ``delta_from_arrays`` does the same for a ``GraphDelta``,
+``landmark_tables_from_arrays`` for a ``LandmarkIndex``'s two distance
+tables and ``xdeepfm_params_from_arrays`` for a parameter tree.  So both
+packages can be run on identical inputs.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import torch
 
 from repro_torch.core.graph import (CsrGraph, EllGraph, Graph,
                                     ell_row_len, resolve_device)
+from repro_torch.core.sssp.dynamic import GraphDelta, _delta_from_host
 
 
 def _arr(x, dtype, device) -> torch.Tensor:
@@ -51,6 +54,26 @@ def ell_from_arrays(ell, device=None) -> EllGraph:
         in_src=_arr(in_src, np.int32, device),
         in_w=_arr(ell.in_w, np.float32, device),
         row_len=_arr(ell_row_len(in_src, int(ell.n)), np.int32, device))
+
+
+def delta_from_arrays(d, device=None) -> GraphDelta:
+    """The reference's ``GraphDelta`` (``k``, ``edge_idx``, ``new_w``,
+    ``ell_row``, ``ell_col``, ``csr_pos`` or None) as the port's,
+    padding rows included; its weights are validated here, on the host
+    (every row positive and finite)."""
+    csr_pos = getattr(d, "csr_pos", None)
+    return _delta_from_host(
+        int(d.k), resolve_device(device), edge_idx=np.asarray(d.edge_idx),
+        new_w=np.asarray(d.new_w, np.float32),
+        ell_row=np.asarray(d.ell_row), ell_col=np.asarray(d.ell_col),
+        csr_pos=None if csr_pos is None else np.asarray(csr_pos))
+
+
+def landmark_tables_from_arrays(d_from, d_to, device=None):
+    """A landmark index's ``d_from``/``d_to`` [k, n] tables as float32
+    tensors on ``device``, for ``landmarks.seed_lower_bounds``."""
+    device = resolve_device(device)
+    return (_arr(d_from, np.float32, device), _arr(d_to, np.float32, device))
 
 
 def xdeepfm_params_from_arrays(params, device=None) -> dict:

@@ -17,10 +17,13 @@ Indices are stored as int32 for parity with the reference arrays; torch's
 scatter/gather ops want int64, so each container caches an int64 copy of
 the index arrays it reduces over (``src_l``/``dst_l``) at first use.
 
-Everything here is host-side preprocessing except the two segment
-primitives the dense rounds use (``seg_min_at_dst``, ``gather_src``),
-which take ``[..., n]`` / ``[..., e_pad]`` tensors with any leading batch
-shape.  ``apply_delta``/``reverse`` are ROADMAP A5/A6.
+Everything here is host-side preprocessing except the segment
+primitives of the rounds (``seg_min_at_dst``, ``gather_src``,
+``gather_dst``), which take ``[..., n]`` / ``[..., e_pad]`` tensors with
+any leading batch shape, and ``apply_delta``: a weight delta
+(``core/sssp/dynamic.GraphDelta``) scattered into every layout on the
+device, topology unchanged.  ``Graph.reverse()`` builds the transpose on
+the host.
 """
 from __future__ import annotations
 
@@ -116,6 +119,39 @@ class Graph:
             vertex_vals.shape[:-1] + (1,), fill)], dim=-1)
         return ext.index_select(-1, self.src_l)
 
+    def gather_dst(self, vertex_vals: torch.Tensor, fill=INF) -> torch.Tensor:
+        """Gather ``[..., n]`` vertex values at edge destinations."""
+        ext = torch.cat([vertex_vals, vertex_vals.new_full(
+            vertex_vals.shape[:-1] + (1,), fill)], dim=-1)
+        return ext.index_select(-1, self.dst_l)
+
+    def apply_delta(self, delta) -> "Graph":
+        """New Graph with a ``GraphDelta``'s weights scattered in at
+        ``delta.edge_idx`` (padding rows, ``edge_idx >= e_pad``, land in
+        a spare slot and drop) and ``in_weight``/``out_weight``
+        recomputed as segment minima.  Topology tensors are shared with
+        ``self``, so topology caches keyed by them stay valid."""
+        w = _scatter_rows(self.w, delta.edge_idx, delta.new_w)
+        return dataclasses.replace(
+            self, w=w, in_weight=self._seg_min(w, self.dst_l),
+            out_weight=self._seg_min(w, self.src_l))
+
+    def _seg_min(self, w: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
+        out = torch.full((self.num_segments,), INF, dtype=w.dtype,
+                         device=w.device)
+        return out.scatter_reduce_(0, seg, w, "amin")[: self.n]
+
+    def reverse(self, **kw) -> "Graph":
+        """The transpose graph (every edge (u, v, w) becomes (v, u, w)),
+        built on the host and placed on this graph's device.  Forward
+        edge i lands at ``argsort(src, stable)^-1[i]`` of the reverse
+        edge list."""
+        e = self.e
+        return build_graph(self.n, self.dst[:e].cpu().numpy(),
+                           self.src[:e].cpu().numpy(),
+                           self.w[:e].cpu().numpy(), device=self.device,
+                           **kw)
+
     def to_host(self) -> "HostGraph":
         """Host adjacency view of the real (non-padding) edges."""
         e = self.e
@@ -126,6 +162,20 @@ class Graph:
     def csr(self) -> "CsrGraph":
         """Src-sorted (CSR) out-edge view for the frontier backend."""
         return build_csr(self)
+
+
+def _scatter_rows(vals: torch.Tensor, idx: torch.Tensor,
+                  new: torch.Tensor) -> torch.Tensor:
+    """A copy of the flat ``vals`` with ``new`` written at ``idx``; rows
+    whose index is outside ``[0, len(vals))`` (padding) go to a spare
+    slot past the end and are dropped.  Indices are never clipped: a
+    clipped padding row would overwrite a real entry."""
+    size = vals.shape[0]
+    idx = idx.long()
+    at = torch.where((idx >= 0) & (idx < size), idx, size)
+    ext = torch.cat([vals, vals.new_full((1,), INF)])
+    ext.index_put_((at,), new.to(vals.dtype))
+    return ext[:size]
 
 
 def build_graph(n: int, src, dst, w, *, edge_pad_multiple: int = 128,
@@ -190,6 +240,17 @@ class CsrGraph:
     def device(self) -> torch.device:
         return self.w.device
 
+    def apply_delta(self, delta) -> "CsrGraph":
+        """The same weight updates ``Graph.apply_delta`` applies, landed at
+        the src-sorted positions ``delta.csr_pos`` (padding rows drop)."""
+        if getattr(delta, "csr_pos", None) is None:
+            raise ValueError(
+                "delta carries no csr_pos permutation; build it with "
+                "make_delta/make_delta_from_endpoints against the current "
+                "graph to update a CsrGraph")
+        return dataclasses.replace(
+            self, w=_scatter_rows(self.w, delta.csr_pos, delta.new_w))
+
 
 def build_csr(g: Graph) -> CsrGraph:
     """Host-side CSR (out-edge) view of a Graph, on the Graph's device."""
@@ -238,6 +299,18 @@ class EllGraph:
     @property
     def device(self) -> torch.device:
         return self.in_w.device
+
+    def apply_delta(self, delta) -> "EllGraph":
+        """The same weight updates at the cells ``(delta.ell_row,
+        delta.ell_col)`` (padding rows, ``2^30``, drop).  ``row_len``
+        is kept: a delta changes weights, never which cells are live."""
+        row, col = delta.ell_row.long(), delta.ell_col.long()
+        ok = (row >= 0) & (row < self.n_pad) & (col >= 0) & (col
+                                                             < self.deg_pad)
+        flat = torch.where(ok, row * self.deg_pad + col, -1)
+        in_w = _scatter_rows(self.in_w.reshape(-1), flat, delta.new_w)
+        return dataclasses.replace(
+            self, in_w=in_w.view(self.n_pad, self.deg_pad))
 
 
 def build_ell(n: int, src, dst, w, *, lane: int = 128, sublane: int = 8,

@@ -24,9 +24,20 @@ together, and the inWeight_nf walk count (three a round).  Every value a
 round computes is a min, a max, a mask or one IEEE f32 add, so the
 results are bitwise the reference's.
 
-This is the cold path only: warm re-solves (A5), targets and ``C0``
-seeds (A6) and ``_round``'s single-lane frontier branch (A7) are queued
-in ROADMAP.md.
+Besides cold solves the engine runs:
+
+  * targeted solves: lane b stops once ``targets[b] >= 0`` is fixed and
+    explored (``_cond``), and ``C0`` seeds the lower bounds
+    (``_init_state``);
+  * warm re-solves after a weight delta (``core/sssp/dynamic.py``):
+    ``delta_taint_seeds`` marks the heads of increased tight edges, the
+    taint sweeps of ``_init_state_warm`` (one host read a sweep) grow
+    them into the affected cone, which is un-fixed, and ``_round`` /
+    ``_round_shared`` with ``warm=True`` un-fix any fixed vertex the
+    relax still improves.
+
+``_round``'s single-lane frontier branch (bidirectional queries) is
+queued in ROADMAP.md.
 """
 from __future__ import annotations
 
@@ -46,6 +57,8 @@ class SSSPConfig:
     c_prop_iters: int = 1            # Eqn-(1) applications per round
     max_rounds: int | None = None    # default n + 2
     use_pallas: bool = False         # selects the "pallas" backend in auto
+    early_exit: bool = True          # targeted solves stop once the target
+    #   is fixed and explored (no effect on untargeted solves)
 
     def __post_init__(self):
         unknown = self.rules - {"min", "pred", "in", "out", "lb"}
@@ -88,8 +101,12 @@ class SSSPResult:
     fixed_by: dict[str, int]
     source: int | None = None
     graph: Graph | None = None
+    target: int | None = None          # the goal of a targeted solve
     edges_relaxed: int | None = None   # frontier backend only
     host_syncs: int | None = None      # device->host reads of the solve
+    partial: bool = False              # early-exited: only fixed vertices
+    #   carry exact distances (dist[target] always does); path_to(target)
+    #   stays exact
     _parents: np.ndarray | None = dataclasses.field(
         default=None, repr=False, compare=False)
 
@@ -231,15 +248,19 @@ def _scatter_set(ext: torch.Tensor, B: int, n: int, tgts: torch.Tensor,
 # State
 # ---------------------------------------------------------------------------
 
-def _init_state(g: Graph, sources: torch.Tensor) -> SSSPState:
+def _init_state(g: Graph, sources: torch.Tensor,
+                C0: torch.Tensor | None = None) -> SSSPState:
     """Cold state for int64[B] ``sources``: D = +inf but 0 at the source,
-    C = 0, nothing fixed."""
+    nothing fixed, C = 0 or the seeds ``max(C0, 0)`` (float32[B, n];
+    the caller vouches ``C0[b, v] <= d(source_b, v)``)."""
     B = sources.shape[0]
     dev = g.device
     D = torch.full((B, g.n), INF, dtype=torch.float32, device=dev)
     D.scatter_(1, sources[:, None], 0.0)
     fixed = torch.zeros((B, g.n), dtype=torch.bool, device=dev)
-    return SSSPState(D=D, C=torch.zeros_like(D), fixed=fixed,
+    C = (torch.zeros_like(D) if C0 is None
+         else torch.clamp(C0.to(torch.float32), min=0.0))
+    return SSSPState(D=D, C=C, fixed=fixed,
                      explored=fixed,
                      round=torch.zeros(B, dtype=torch.int32, device=dev),
                      fixed_by=torch.zeros((B, 5), dtype=torch.int32,
@@ -259,13 +280,160 @@ def _select(go: torch.Tensor, new: SSSPState, old: SSSPState) -> SSSPState:
     return SSSPState(**out)
 
 
-def _cond(state: SSSPState, max_rounds: int) -> torch.Tensor:
+def _cond(state: SSSPState, max_rounds: int,
+          targets: torch.Tensor | None = None) -> torch.Tensor:
     """bool[B] keep-going predicate per lane: something is discovered but
-    not fixed, or fixed but not yet explored, within the round cap."""
+    not fixed, or fixed but not yet explored, within the round cap.  With
+    int64[B] ``targets`` (-1: untargeted lane) a lane also stops once its
+    target is fixed and explored: later rounds cannot change its D."""
     active = (state.D < INF) & ~state.fixed
     pending = state.fixed & ~state.explored
-    return (active.any(dim=1) | pending.any(dim=1)) & (state.round
-                                                       < max_rounds)
+    go = (active.any(dim=1) | pending.any(dim=1)) & (state.round
+                                                     < max_rounds)
+    if targets is not None:
+        t = targets.clamp(min=0)[:, None]
+        done = ((targets >= 0) & state.fixed.gather(1, t)[:, 0]
+                & state.explored.gather(1, t)[:, 0])
+        go = go & ~done
+    return go
+
+
+def _loop(g: Graph, cfg: SSSPConfig, state: SSSPState,
+          prims: backends.Primitives, sync: SyncCounter, max_rounds: int,
+          targets: torch.Tensor | None = None,
+          warm: bool = False) -> SSSPState:
+    """Dense rounds while any lane's ``_cond`` holds (one host read a
+    round), finished lanes select-frozen."""
+    go = _cond(state, max_rounds, targets)
+    while sync.read(go.any()):
+        state = _select(go, _round(g, cfg, state, prims, warm), state)
+        go = _cond(state, max_rounds, targets)
+    return state
+
+
+# ---------------------------------------------------------------------------
+# Warm start after a weight delta
+# ---------------------------------------------------------------------------
+
+def _delta_rows(g_old: Graph, delta):
+    """(valid bool[k_pad], clamped int64 edge ids, old weights) of the
+    delta's rows on ``g_old``; padding rows (``edge_idx >= e_pad``) are
+    invalid and read a clamped edge that every caller masks out."""
+    valid = delta.edge_idx < g_old.e_pad
+    idx = delta.edge_idx.clamp(max=g_old.e_pad - 1).long()
+    return valid, idx, g_old.w[idx]
+
+
+def delta_taint_seeds(g_old: Graph, delta, D0: torch.Tensor):
+    """Taint seeds of a warm start, per lane of ``D0`` float32[B, n] (the
+    distances of the previous solves on ``g_old``):
+
+      seeds bool[B, n]: heads v of delta edges (u, v) that increased and
+          were tight, ``D0[u] + w_old <= D0[v]`` with both finite; only
+          through such an edge can an old certificate break;
+      pure_increase bool[B]: no delta edge decreased, so every old D is
+          still a lower bound (the same for every lane).
+    """
+    n = g_old.n
+    B = D0.shape[0]
+    valid, idx, w_old = _delta_rows(g_old, delta)
+    src, dst = g_old.src_l[idx], g_old.dst_l[idx]
+    D0_ext = torch.cat([D0, D0.new_full((B, 1), INF)], dim=1)
+    Ds, Dd = D0_ext[:, src], D0_ext[:, dst]
+    increased = valid & (delta.new_w > w_old)
+    tight = (Ds + w_old <= Dd) & (Ds < INF) & (Dd < INF)
+    seed_at = torch.where(increased & tight, dst, n)
+    seeds = torch.zeros((B, n + 1), dtype=torch.bool, device=D0.device)
+    seeds.scatter_(1, seed_at, True)
+    pure = ~(valid & (delta.new_w < w_old)).any()
+    return seeds[:, :n].contiguous(), pure.expand(B)
+
+
+def delta_decrease_sources(g_old: Graph, delta) -> torch.Tensor:
+    """bool[n]: tails of decreased delta edges, the fixed vertices whose
+    offers changed without their own D changing (lane-independent)."""
+    n = g_old.n
+    valid, idx, w_old = _delta_rows(g_old, delta)
+    at = torch.where(valid & (delta.new_w < w_old), g_old.src_l[idx], n)
+    out = torch.zeros(n + 1, dtype=torch.bool, device=g_old.device)
+    return out.index_fill_(0, at, True)[:n]
+
+
+def _warm_seed_mask(g: Graph, taint: torch.Tensor, fixed: torch.Tensor,
+                    D: torch.Tensor,
+                    dec_src: torch.Tensor | None) -> torch.Tensor:
+    """bool[B, n]: fixed vertices whose warm round-1 offers are not yet
+    folded into the warm state: the cone's in-boundary (fixed tails of
+    edges into ``taint``) and ``dec_src``; every surviving fixed vertex
+    when ``dec_src`` is None (still exact)."""
+    if dec_src is None:
+        return fixed & (D < INF)
+    B, n = taint.shape
+    at = torch.where(g.gather_dst(taint, fill=False), g.src_l, n)
+    bnd = torch.zeros((B, n + 1), dtype=torch.bool, device=taint.device)
+    bnd.scatter_(1, at, True)
+    return (bnd[:, :n] | dec_src) & fixed & (D < INF)
+
+
+def _init_state_warm(g: Graph, prev_D: torch.Tensor,
+                     prev_fixed: torch.Tensor, seeds: torch.Tensor,
+                     pure_increase: torch.Tensor,
+                     prims: backends.Primitives, sync: SyncCounter):
+    """Warm state of B lanes after a weight delta, on the mutated ``g``.
+
+    The affected cone ``taint`` grows from ``seeds`` along tight edges
+    (``prims.relax(prev_D, taint) <= prev_D``) to a fixpoint, one relax
+    a sweep and one host read a sweep; a lane whose cone stopped growing
+    is frozen, so ``sweeps`` int32[B] is per lane.  The cone is un-fixed
+    with D = +inf (its old bounds may be too low); the rest keeps its D
+    and stays fixed.  C is D where fixed, and under a pure increase the
+    old D elsewhere (still a lower bound), else 0.  ``explored`` starts
+    all False, so the first round relaxes every fixed vertex.  Returns
+    ``(state, sweeps, taint)``.
+    """
+    B, n = prev_D.shape
+    dev = prev_D.device
+    live = prev_D < INF
+    taint = seeds
+    changed = seeds.any(dim=1)
+    sweeps = torch.zeros(B, dtype=torch.int32, device=dev)
+    go = changed & (sweeps < n + 1)
+    while sync.read(go.any()):
+        reach = prims.relax(prev_D, taint)
+        taint2 = taint | ((reach <= prev_D) & live)
+        grew = (taint2 != taint).any(dim=1)
+        taint = torch.where(go[:, None], taint2, taint)
+        changed = torch.where(go, grew, changed)
+        sweeps = sweeps + go.to(torch.int32)
+        go = changed & (sweeps < n + 1)
+    fixed = prev_fixed & ~taint
+    D = torch.where(taint, INF, prev_D)
+    C = torch.where(fixed, D, torch.where(
+        pure_increase[:, None] & prev_fixed & live, prev_D, 0.0))
+    state = SSSPState(
+        D=D, C=C, fixed=fixed, explored=torch.zeros_like(fixed),
+        round=torch.zeros(B, dtype=torch.int32, device=dev),
+        fixed_by=torch.zeros((B, 5), dtype=torch.int32, device=dev))
+    return state, sweeps, taint
+
+
+def _solve_warm(g: Graph, cfg: SSSPConfig, prev_D: torch.Tensor,
+                prev_fixed: torch.Tensor, seeds: torch.Tensor,
+                pure_increase: torch.Tensor, prims: backends.Primitives,
+                sync: SyncCounter, dec_src: torch.Tensor | None = None):
+    """Warm re-solve of B lanes to fixpoint on the mutated ``g``: the
+    warm state, then ``warm=True`` rounds.  The round cap is doubled
+    against a cold solve, since un-fixing can re-open vertices.  Frontier
+    prims route to ``_solve_warm_frontier``.  Returns ``(state, sweeps,
+    taint)``."""
+    if prims.relax_frontier_b is not None:
+        return _solve_warm_frontier(g, cfg, prev_D, prev_fixed, seeds,
+                                    pure_increase, prims, sync, dec_src)
+    state, sweeps, taint = _init_state_warm(g, prev_D, prev_fixed, seeds,
+                                            pure_increase, prims, sync)
+    max_rounds = 2 * cfg.max_rounds if cfg.max_rounds else 2 * g.n + 4
+    state = _loop(g, cfg, state, prims, sync, max_rounds, warm=True)
+    return state, sweeps, taint
 
 
 # ---------------------------------------------------------------------------
@@ -273,9 +441,11 @@ def _cond(state: SSSPState, max_rounds: int) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def _round(g: Graph, cfg: SSSPConfig, state: SSSPState,
-           prims: backends.Primitives) -> SSSPState:
+           prims: backends.Primitives, warm: bool = False) -> SSSPState:
     """One bulk-synchronous dense round over ``[B, n]`` lanes — THE round
-    body of the segment and ELL/pallas backends."""
+    body of the segment and ELL/pallas backends.  ``warm=True`` un-fixes
+    every fixed vertex the relax improves (possible only after a weight
+    decrease) and drops its C to 0; D stays monotone, so this ends."""
     D, C, fixed = state.D, state.C, state.fixed
 
     # --- Step 1: relax FIRST, from previously-fixed (label-setting) or
@@ -284,6 +454,10 @@ def _round(g: Graph, cfg: SSSPConfig, state: SSSPState,
     need_inw = ("in" in cfg.rules) or ("pred" in cfg.rules)
     D_relax = prims.relax(D, relax_src)
     in_w_nf = prims.in_weight_nf(~fixed) if need_inw else None
+    if warm:
+        improved = fixed & (D_relax < D)
+        fixed = fixed & ~improved
+        C = torch.where(improved, 0.0, C)
     D = torch.where(~fixed, torch.minimum(D, D_relax), D)
     explored = fixed
 
@@ -343,19 +517,20 @@ def _round(g: Graph, cfg: SSSPConfig, state: SSSPState,
 
 
 def _solve(g: Graph, cfg: SSSPConfig, sources: torch.Tensor,
-           prims: backends.Primitives, sync: SyncCounter) -> SSSPState:
-    """Dense solve of int64[B] ``sources`` to fixpoint.  Frontier prims
+           prims: backends.Primitives, sync: SyncCounter,
+           C0: torch.Tensor | None = None,
+           targets: torch.Tensor | None = None) -> SSSPState:
+    """Dense solve of int64[B] ``sources`` to fixpoint, or per lane to
+    its target (int64[B], -1: none; ignored without ``cfg.early_exit``),
+    from lower-bound seeds ``C0`` float32[B, n] if given.  Frontier prims
     route to ``_solve_frontier`` (as the reference's ``_solve`` does for
     every frontier solve, B = 1 included)."""
+    if not cfg.early_exit:
+        targets = None
     if prims.relax_frontier_b is not None:
-        return _solve_frontier(g, cfg, sources, prims, sync)
-    state = _init_state(g, sources)
-    max_rounds = cfg.max_rounds or g.n + 2
-    go = _cond(state, max_rounds)
-    while sync.read(go.any()):
-        state = _select(go, _round(g, cfg, state, prims), state)
-        go = _cond(state, max_rounds)
-    return state
+        return _solve_frontier(g, cfg, sources, prims, sync, C0, targets)
+    return _loop(g, cfg, _init_state(g, sources, C0), prims, sync,
+                 cfg.max_rounds or g.n + 2, targets)
 
 
 # ---------------------------------------------------------------------------
@@ -364,7 +539,8 @@ def _solve(g: Graph, cfg: SSSPConfig, sources: torch.Tensor,
 
 def _round_shared(g: Graph, cfg: SSSPConfig, state: SSSPState,
                   f_idx: torch.Tensor, f_cnt: int,
-                  prims: backends.Primitives, sync: SyncCounter):
+                  prims: backends.Primitives, sync: SyncCounter,
+                  warm: bool = False):
     """One round over ``[B, n]`` lanes sharing ONE compacted union
     frontier ``f_idx`` (``f_cnt`` its true size, already on the host).
 
@@ -374,8 +550,10 @@ def _round_shared(g: Graph, cfg: SSSPConfig, state: SSSPState,
     the incremental carry ``state.in_w_nf``; C-propagation is bounded to
     the cone of flipped-bit sources and sources with ``C > minD``, with
     the closed form ``max(C, min(c_fix, minD + inWeight_nf))`` off it.
-    Returns ``(state, fresh)`` with ``fresh`` bool[B, n] the next-round
-    frontier mask.
+    ``warm=True`` un-fixes improved vertices as ``_round`` does and marks
+    them c_fix-stale (they leave the fixed-source set).  Returns
+    ``(state, fresh)`` with ``fresh`` bool[B, n] the next-round frontier
+    mask.
     """
     D, C, fixed = state.D, state.C, state.fixed          # [B, n]
     cap = prims.frontier_cap
@@ -400,6 +578,12 @@ def _round_shared(g: Graph, cfg: SSSPConfig, state: SSSPState,
 
     in_w_nf = state.in_w_nf    # invariant: == in_weight_nf(~round-start fixed)
     cfix_stale = state.cfix_stale
+    if warm:
+        improved = fixed & (D_relax < D)
+        fixed = fixed & ~improved
+        C = torch.where(improved, 0.0, C)
+        if cfix_stale is not None:
+            cfix_stale = cfix_stale | improved
     D = torch.where(~fixed, torch.minimum(D, D_relax), D)
     explored = fixed
 
@@ -539,35 +723,64 @@ def _strip_carries(state: SSSPState) -> SSSPState:
 def _frontier_fixpoint(g: Graph, cfg: SSSPConfig, prims: backends.Primitives,
                        state: SSSPState, f_idx: torch.Tensor,
                        f_cnt: torch.Tensor, max_rounds: int,
-                       sync: SyncCounter) -> SSSPState:
+                       sync: SyncCounter,
+                       targets: torch.Tensor | None = None,
+                       warm: bool = False) -> SSSPState:
     """Shared-frontier loop over ``[B, n]`` lanes: one union compaction
-    per round; run while any lane's ``_cond`` holds and select-freeze the
-    finished lanes.  The termination predicate and the frontier count
-    (which picks the overflow branch) come back in one host read."""
+    per round; run while any lane's ``_cond`` (with its target test)
+    holds and select-freeze the finished lanes.  The termination
+    predicate and the frontier count (which picks the overflow branch)
+    come back in one host read."""
     cap = prims.frontier_cap
-    go = _cond(state, max_rounds)
+    go = _cond(state, max_rounds, targets)
     while True:
         more, cnt = sync.read(torch.stack([go.any().to(torch.int32),
                                            f_cnt.to(torch.int32)]))
         if not more:
             return state
-        st2, fresh = _round_shared(g, cfg, state, f_idx, cnt, prims, sync)
+        st2, fresh = _round_shared(g, cfg, state, f_idx, cnt, prims, sync,
+                                   warm)
         state = _select(go, st2, state)
         union = (fresh & go[:, None]).any(dim=0)
         f_idx, f_cnt = _compact_frontier(union, cap, g.n)
-        go = _cond(state, max_rounds)
+        go = _cond(state, max_rounds, targets)
 
 
 def _solve_frontier(g: Graph, cfg: SSSPConfig, sources: torch.Tensor,
-                    prims: backends.Primitives,
-                    sync: SyncCounter) -> SSSPState:
+                    prims: backends.Primitives, sync: SyncCounter,
+                    C0: torch.Tensor | None = None,
+                    targets: torch.Tensor | None = None) -> SSSPState:
     """Batched frontier solve of int64[B] ``sources``: B lanes, ONE shared
     union frontier seeded with the union of the sources."""
-    state = _attach_carries(g, cfg, prims, _init_state(g, sources))
+    state = _attach_carries(g, cfg, prims, _init_state(g, sources, C0))
     src_mask = torch.zeros(g.n, dtype=torch.bool, device=g.device)
     src_mask.index_fill_(0, sources, True)
     f_idx, f_cnt = _compact_frontier(src_mask, prims.frontier_cap, g.n)
     max_rounds = cfg.max_rounds or g.n + 2
     state = _frontier_fixpoint(g, cfg, prims, state, f_idx, f_cnt,
-                               max_rounds, sync)
+                               max_rounds, sync, targets)
     return _strip_carries(state)
+
+
+def _solve_warm_frontier(g: Graph, cfg: SSSPConfig, prev_D: torch.Tensor,
+                         prev_fixed: torch.Tensor, seeds: torch.Tensor,
+                         pure_increase: torch.Tensor,
+                         prims: backends.Primitives, sync: SyncCounter,
+                         dec_src: torch.Tensor | None = None):
+    """Batched warm re-solve on the shared union frontier.  The lanes'
+    warm states come from ``_init_state_warm`` with segment taint sweeps
+    (as the reference's, whatever the route); the shared buffer is the
+    union of the lanes' ``_warm_seed_mask``s, a superset of each lane's
+    seeds whose extra vertices only re-send folded offers.  Returns
+    ``(state, sweeps int32[B], taint bool[B, n])``."""
+    state, sweeps, taint = _init_state_warm(
+        g, prev_D, prev_fixed, seeds, pure_increase,
+        backends.segment_prims(g), sync)
+    state = _attach_carries(g, cfg, prims, state)
+    seed = _warm_seed_mask(g, taint, state.fixed, state.D, dec_src)
+    f_idx, f_cnt = _compact_frontier(seed.any(dim=0), prims.frontier_cap,
+                                     g.n)
+    max_rounds = 2 * cfg.max_rounds if cfg.max_rounds else 2 * g.n + 4
+    state = _frontier_fixpoint(g, cfg, prims, state, f_idx, f_cnt,
+                               max_rounds, sync, warm=True)
+    return _strip_carries(state), sweeps, taint

@@ -7,6 +7,9 @@ the move to the device — so answering a source is one engine run:
   * ``solve_batch`` pads the batch to the next power of two (repeating
     the last source, as the reference does for its compiled shapes) and
     runs all lanes in one loop;
+  * ``target=``/``targets=`` make a solve goal-directed (each lane stops
+    once its target is certified; the result is stamped ``partial``),
+    and ``C0=`` seeds the lower bounds, e.g. from a ``LandmarkIndex``;
   * backends are instances of the primitives protocol (backends.py), so
     "segment", "ell"/"pallas" and "frontier" share the round body.
 
@@ -41,6 +44,8 @@ class SSSPBatchResult:
     rounds: np.ndarray        # int32[B]
     fixed_by: list[dict[str, int]]
     graph: Graph | None = None
+    targets: np.ndarray | None = None        # int32[B] (-1: untargeted)
+    partial: bool = False                    # lanes may have early-exited
     edges_relaxed: np.ndarray | None = None  # int64[B] (frontier backend)
     host_syncs: int | None = None            # device->host reads of the run
 
@@ -48,10 +53,14 @@ class SSSPBatchResult:
         return len(self.sources)
 
     def result(self, i: int) -> SSSPResult:
+        t = None
+        if self.targets is not None and int(self.targets[i]) >= 0:
+            t = int(self.targets[i])
         return SSSPResult(
             dist=self.dist[i], C=self.C[i], fixed=self.fixed[i],
             rounds=int(self.rounds[i]), fixed_by=self.fixed_by[i],
-            source=int(self.sources[i]), graph=self.graph,
+            source=int(self.sources[i]), graph=self.graph, target=t,
+            partial=self.partial and t is not None,
             edges_relaxed=None if self.edges_relaxed is None
             else int(self.edges_relaxed[i]))
 
@@ -142,41 +151,61 @@ class Solver:
                                 graph.w[:e].cpu().numpy(),
                                 max_deg_cap=max_deg_cap, device=device)
             self.ell = ell
-            self.prims = backends.ell_prims(graph, ell)
         elif backend == "frontier":
             self.csr = graph.csr()
             self.frontier_cap = _next_pow2(
                 _default_frontier_cap(graph.n) if frontier_cap is None
                 else max(1, int(frontier_cap)))
-            self.prims = backends.frontier_prims(graph, self.csr,
-                                                 self.frontier_cap)
-        else:
-            self.prims = backends.segment_prims(graph)
+        self.prims = self._make_prims(graph, self.ell, self.csr)
+
+    def _make_prims(self, g: Graph, ell: EllGraph | None,
+                    csr: CsrGraph | None) -> backends.Primitives:
+        """The backend's primitives over these layouts (a DynamicSolver
+        rebuilds them on each mutated graph)."""
+        if csr is not None:
+            return backends.frontier_prims(g, csr, self.frontier_cap)
+        if ell is not None:
+            return backends.ell_prims(g, ell)
+        return backends.segment_prims(g)
 
     # ------------------------------------------------------------------
-    def _check_sources(self, sources) -> None:
+    def _check_sources(self, sources, what: str = "source") -> None:
         sources = np.asarray(sources, np.int64)
         bad = sources[(sources < 0) | (sources >= self.graph.n)]
         if bad.size:
-            raise ValueError(f"source vertices {bad.tolist()} out of range "
+            raise ValueError(f"{what} vertices {bad.tolist()} out of range "
                              f"[0, {self.graph.n})")
 
-    @staticmethod
-    def _unported(target, C0) -> None:
-        if target is not None or C0 is not None:
-            raise NotImplementedError(
-                "targeted solves and C0 lower-bound seeds are not ported "
-                "yet (ROADMAP A6)")
-
-    def _run(self, sources: np.ndarray, b: int):
-        """Engine run of the (padded) ``sources``; returns the state, the
-        host copies of ``rounds``/``fixed_by``/``edges`` of the first
-        ``b`` lanes (one read) and the run's count of host reads."""
-        sync = SyncCounter()
-        src = torch.as_tensor(sources, dtype=torch.int64)
+    def _to_device(self, host: np.ndarray) -> torch.Tensor:
+        t = torch.as_tensor(host, dtype=torch.int64)
         if self.device.type == "cuda":    # an async copy: no host sync
-            src = src.pin_memory().to(self.device, non_blocking=True)
-        state = _solve(self.graph, self.cfg, src, self.prims, sync)
+            t = t.pin_memory().to(self.device, non_blocking=True)
+        return t
+
+    def _seeds(self, C0, b: int, b_pad: int) -> torch.Tensor | None:
+        """float32[b_pad, n] lower-bound seeds on the solver's device from
+        ``C0`` [b, n], padded by repeating its last row."""
+        if C0 is None:
+            return None
+        c0 = torch.as_tensor(C0, dtype=torch.float32, device=self.device)
+        n = self.graph.n
+        if c0.shape != (b, n):
+            raise ValueError(f"C0 shape {tuple(c0.shape)} != ({b}, {n})")
+        if b_pad > b:
+            c0 = torch.cat([c0, c0[-1:].expand(b_pad - b, n)])
+        return c0
+
+    def _run(self, sources: np.ndarray, b: int,
+             targets: np.ndarray | None = None,
+             C0: torch.Tensor | None = None):
+        """Engine run of the (padded) ``sources`` (and ``targets``, seeds
+        ``C0``); returns the state, the host copies of
+        ``rounds``/``fixed_by``/``edges`` of the first ``b`` lanes (one
+        read) and the run's count of host reads."""
+        sync = SyncCounter()
+        src = self._to_device(sources)
+        tgt = None if targets is None else self._to_device(targets)
+        state = _solve(self.graph, self.cfg, src, self.prims, sync, C0, tgt)
         meta = [state.round[:b, None], state.fixed_by[:b]]
         if state.edges is not None:
             meta.append(state.edges[:b, None])
@@ -187,15 +216,26 @@ class Solver:
 
     def solve(self, source: int, target: int | None = None,
               C0=None) -> SSSPResult:
-        """Distances from one source (the engine at B = 1)."""
-        self._unported(target, C0)
+        """Distances from one source (the engine at B = 1).
+
+        ``target`` makes the solve stop once ``dist[target]`` is
+        certified (``partial=True``: only fixed vertices are exact, and
+        ``path_to(target)`` is).  ``C0`` float32[n] seeds the lower
+        bounds, e.g. ``LandmarkIndex.seed(source)``.
+        """
         self._check_sources([source])
+        if target is not None:
+            self._check_sources([target], what="target")
+        tgt = None if target is None else np.array([target], np.int64)
+        c0 = None if C0 is None else torch.as_tensor(
+            C0, dtype=torch.float32, device=self.device).reshape(1, -1)
         state, rounds, fb, edges, syncs = self._run(
-            np.array([source], np.int64), 1)
+            np.array([source], np.int64), 1, tgt, self._seeds(c0, 1, 1))
         return SSSPResult(
             dist=state.D[0], C=state.C[0], fixed=state.fixed[0],
             rounds=int(rounds[0]), fixed_by=_fixed_by_dict(fb[0]),
-            source=int(source), graph=self.graph,
+            source=int(source), graph=self.graph, target=target,
+            partial=target is not None and self.cfg.early_exit,
             edges_relaxed=None if edges is None else int(edges[0]),
             host_syncs=syncs)
 
@@ -204,19 +244,35 @@ class Solver:
 
         The batch is right-padded (repeating the last source) to the next
         power of two, as the reference pads its compiled batch shapes;
-        padding lanes are sliced off the result.
+        padding lanes are sliced off the result.  ``targets`` int[B]
+        makes every lane goal-directed (see ``solve``); padding lanes
+        repeat the last target, so they never outrun the real ones.
+        ``C0`` float32[B, n] seeds the lanes' lower bounds (on the
+        solver's device, no host copy; padding repeats the last row).
         """
-        self._unported(targets, C0)
         sources = np.asarray(sources, np.int32).ravel()
         if sources.size == 0:
             raise ValueError("solve_batch needs at least one source")
         self._check_sources(sources)
         b = len(sources)
+        b_pad = _next_pow2(b)
         padded = np.concatenate(
-            [sources, np.full(_next_pow2(b) - b, sources[-1], np.int32)])
-        state, rounds, fb, edges, syncs = self._run(padded, b)
+            [sources, np.full(b_pad - b, sources[-1], np.int32)])
+        tpad = None
+        if targets is not None:
+            targets = np.asarray(targets, np.int32).ravel()
+            if targets.size != b:
+                raise ValueError(f"targets {targets.shape} must match "
+                                 f"sources ({b},)")
+            self._check_sources(targets, what="target")
+            tpad = np.concatenate(
+                [targets, np.full(b_pad - b, targets[-1], np.int32)])
+        state, rounds, fb, edges, syncs = self._run(
+            padded, b, tpad, self._seeds(C0, b, b_pad))
         return SSSPBatchResult(
             sources=sources,
             dist=state.D[:b], C=state.C[:b], fixed=state.fixed[:b],
             rounds=rounds, fixed_by=[_fixed_by_dict(f) for f in fb],
-            graph=self.graph, edges_relaxed=edges, host_syncs=syncs)
+            graph=self.graph, targets=targets,
+            partial=targets is not None and self.cfg.early_exit,
+            edges_relaxed=edges, host_syncs=syncs)

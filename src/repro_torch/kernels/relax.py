@@ -64,6 +64,11 @@ def relax_ell(x: torch.Tensor | None, src_mask: torch.Tensor,
     if src_mask.device.type == "cpu":
         if x is None:
             x = torch.zeros(src_mask.shape, dtype=torch.float32)
+        if row_len is not None:
+            # every cell past the longest row's extent is padding, which
+            # the min masks to +inf anyway: reading up to it is exact
+            width = max(int(row_len.max()) if row_len.numel() else 0, 1)
+            in_src, in_w = in_src[:, :width], in_w[:, :width]
         return ref.relax_ell_ref(x, src_mask, in_src, in_w, n)
     if src_mask.device.type != "cuda":
         raise ValueError(f"no kernel for device {src_mask.device}")

@@ -11,15 +11,36 @@ Backends (``backend=``): "segment" (scatter-min over the dst-sorted edge
 list), "ell"/"pallas" (dense in-neighbour layout through the fused ELL
 relax and masked-min kernels), "frontier" (compacted sparse-frontier
 rounds through the scatter-min kernel; "auto" picks it for
-thin-wavefront graphs).  The dynamic, landmark, bidirectional, fleet and
-distributed subsystems of ``repro.sssp`` are queued in ROADMAP.md.
+thin-wavefront graphs).
+
+Dynamic graphs (weight streams):
+
+    dyn = sssp.DynamicSolver(graph)              # tracks full results
+    dyn.solve_batch([0, 7])
+    delta = sssp.make_delta(dyn.graph, idx, w)   # or random_delta
+    dyn.update(delta)                            # warm re-solve, stats
+    dyn.resolve([0, 7])                          # post-update distances
+
+Targeted queries with landmark (ALT) seeds:
+
+    index = sssp.LandmarkIndex(graph, k=8)       # d(L,.) and d(.,L)
+    res = solver.solve(s, target=t, C0=index.seed(s))   # early exit
+    res.dist[t]; res.path_to(t)                  # exact on the partial
+
+The bidirectional, fleet and distributed subsystems of ``repro.sssp`` are
+queued in ROADMAP.md.
 """
 from repro_torch.core.graph import (  # noqa: F401
     CsrGraph, EllGraph, Graph, HostGraph, build_csr, build_ell, build_graph)
 from repro_torch.core.sssp.backends import Primitives  # noqa: F401
+from repro_torch.core.sssp.dynamic import (  # noqa: F401
+    DynamicSolver, GraphDelta, make_delta, make_delta_from_endpoints,
+    random_delta)
 from repro_torch.core.sssp.engine import (  # noqa: F401
     SP1_RULES, SP2_RULES, SP3_CONFIG, SP3_RULES, SP4_CONFIG, SSSPConfig,
     SSSPResult)
+from repro_torch.core.sssp.landmarks import (  # noqa: F401
+    LandmarkIndex, ReselectPolicy, seed_lower_bounds, select_landmarks)
 from repro_torch.core.sssp.parents import (  # noqa: F401
     extract_path, parent_pointers)
 from repro_torch.core.sssp.reference import (  # noqa: F401

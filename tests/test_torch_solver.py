@@ -108,10 +108,6 @@ def test_parents_and_paths_match_reference():
 def test_unported_options_raise():
     _, pg = _graphs("chain", n=60)
     solver = P.Solver(pg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A6"):
-        solver.solve(0, target=5)
-    with pytest.raises(NotImplementedError, match="A6"):
-        solver.solve_batch([0, 1], C0=np.zeros((2, pg.n), np.float32))
     with pytest.raises(NotImplementedError, match="A10"):
         P.Solver(pg, backend="distributed", device="cpu")
     with pytest.raises(ValueError, match="out of range"):
