@@ -12,8 +12,9 @@ Phases, each failing the run (non-zero exit) if it fails:
  3. kernels: each CUDA kernel against its plain PyTorch version on the
     card at the main paths' shapes, the SSSP kernels on edge cases too
     (B3 also over full rows; the fused B2 beside the gather + tgt/cand
-    kernel it replaced on the main path; B4 in its single form and as
-    the pair of minima a pallas round takes in one launch, beside
+    kernel it replaced on the main path; B1's single-lane op at cap 4096
+    and at the bidirectional route's cap 2^20; B4 in its single form and
+    as the pair of minima a pallas round takes in one launch, beside
     ``torch.masked.amin``),
     with tolerance 0 for the SSSP kernels (min, mask and one f32 add are
     exact), the reference's own for the CIN (3e-4) and f32 attention
@@ -38,10 +39,24 @@ Phases, each failing the run (non-zero exit) if it fails:
     segment and pallas, 8 on the grid through frontier), every target
     bitwise against the untargeted solve, every seed a lower bound up to
     f32 rounding, then the gnp index's ``apply_delta``;
+    ``[bidi]``: ``BidirectionalSolver`` on the same graphs and pairs (8
+    grid pairs via "auto" -> frontier, 16 gnp pairs via "auto" ->
+    segment), unseeded and seeded from ``[p2p]``'s index, every distance
+    bitwise ``[p2p]``'s, every path real edges, B1 launched twice a
+    frontier round; then ``update`` with ``[dynamic]``'s delta refreshing
+    2 grid and 8 gnp pairs warm, bitwise cold solves and near scipy;
+    ``[fleet]``: a segment ``FleetSolver`` over 8 grids of side 512
+    (``solve``, ``solve_batch`` [8, 8], stacked deltas, ``update``,
+    ``resolve``), every member bitwise its per-graph solve, host reads
+    rounds + 2 whatever F; a frontier fleet of 2 members; a
+    ``CongestionReplay`` of 8 grids of side 256 with a dropout and a
+    straggler, bitwise a fault-free replay;
     ``[parity]``: the card bitwise against the port's own CPU run on
     2^14-vertex graphs of the seven generator families (cold batch,
-    warm update with its stats, seeded targeted batch), under torch's
-    sync debug mode;
+    warm update with its stats, seeded targeted batch; bidirectional
+    pairs and a 3-member fleet, cold and updated, on both routes), the
+    card's runs under torch's sync debug mode, the CPU's in 3 worker
+    processes beside them;
  6. xDeepFM scoring at the paper's FULL config (18.9 M table rows)
     through ``repro_torch.models.xdeepfm.XDeepFM``: the ``serve_p99``
     (B = 512), ``serve_bulk`` (B = 262,144) and ``retrieval_cand`` (1
@@ -84,6 +99,9 @@ GRID_SIDE = 1024              # grid(side=1024): n = 2^20, 4.2 M edges
 GNP_N = 1 << 20               # gnp(2^20, avg_deg=8): 8.4 M edges
 FRONTIER_CAP = 4096           # the Solver's default cap at n = 2^20
 PARITY_N = 1 << 14            # card vs CPU parity graphs
+PARITY_HUB_N = 1 << 9         # power_law's frontier fleet (see fleet_parity)
+FLEET_SIDE = 512              # [fleet]: 8 grids, n = 2^18 each
+REPLAY_SIDE = 256             # [fleet] congestion replay: 8 grids, n = 2^16
 # a landmark seed is a difference of two f32 path sums, each of which may
 # be off by about (hops x 6e-8) of its value: a seed may pass the f32
 # distance by that much, held to 1e-4 of the largest finite table entry
@@ -250,6 +268,22 @@ def kernel_phase(torch, pt):
         r = rec.setdefault(name, {"max_abs_err": 0.0, "shapes": []})
         r["max_abs_err"] = max(r["max_abs_err"], err)
 
+    def b1_op(x0, m0, f_idx, want, what, plain, plain_dev, b_ms, b_by):
+        """``ops.frontier_relax`` (launch key ``frontier_relax``) held
+        against its plain version, timed, recorded under B1's row."""
+        def op1():
+            return ops.frontier_relax(x0, csr, f_idx, m0)
+        held("frontier_relax", op1(), want, f"B=1 {what} (B1 op)")
+        o_ms = time_ms(torch, op1)
+        o_dev, o_ops = device_profile(torch, op1)
+        log(f"  ops.frontier_relax {what} (B1 op): {o_ms:.4f} ms (events), "
+            f"device {o_dev:.4f} ms, plain {plain:.4f} / {plain_dev:.4f} "
+            f"ms, {o_ops:.1f} device ops a call; wrapper host cost "
+            f"{o_ms - o_dev:.4f} ms; bound {b_ms:.4f} ms ({b_by})")
+        record(rec, "frontier_relax", what, o_ms, plain, None,
+               dict(kernel=o_dev, plain=plain_dev), b_ms, b_by,
+               device_ops=o_ops)
+
     # --- B2 / B1 at the grid-1024 frontier shapes ----------------------
     n, src, dst, w = gen.grid(GRID_SIDE, seed=0)
     g = sssp.build_graph(n, src, dst, w, device=dev)
@@ -335,23 +369,12 @@ def kernel_phase(torch, pt):
         record(rec, "frontier_scatter_min_batch", f"B={B}", ms, plain, lib,
                dt, b_ms, b_by, device_ops=k_ops)
         if B == 1:
-            # B1's fused op, as an engine path would call it (none does
-            # until A7): the fused entry at B = 1
+            # B1's single-lane op, the legacy round's: the fused entry at
+            # B = 1 under its own launch key, here and at the
+            # bidirectional route's cap 2^20 below
             x0, m0 = x[0].contiguous(), mask[0].contiguous()
-
-            def op1():
-                return ops.frontier_relax(x0, csr, f_idx, m0)
-            held("frontier_relax_csr", op1(), want[0],
-                 "B=1 ops.frontier_relax (B1 op)")
-            o_ms = time_ms(torch, op1)
-            o_dev, o_ops = device_profile(torch, op1)
-            log(f"  ops.frontier_relax B=1 (B1 op, fused entry): {o_ms:.4f} "
-                f"ms (events), device {o_dev:.4f} ms, {o_ops:.1f} device "
-                f"ops a call; wrapper host cost {o_ms - o_dev:.4f} ms")
-            record(rec, "frontier_scatter_min", "B=1 ops.frontier_relax "
-                   "(fused)", o_ms, plain_fused, None,
-                   dict(kernel=o_dev, plain=p_dev), b_ms_fused, b_by_fused,
-                   device_ops=o_ops)
+            b1_op(x0, m0, f_idx, want[0], f"cap {cap}", plain_fused,
+                  p_dev, b_ms_fused, b_by_fused)
             c0 = cand[0].contiguous()
             held("frontier_scatter_min", frontier_scatter_min(tgt, c0, g.n),
                  want[0], "B=1 (B1 wrapper)")
@@ -372,6 +395,29 @@ def kernel_phase(torch, pt):
                 f"wrapper host cost {ms1 - d1:.4f} ms")
             record(rec, "frontier_scatter_min", "B=1", ms1, pl1, lib1, dt1,
                    b_ms, b_by, device_ops=d1_ops)
+    # B1 at the bidirectional frontier route's buffer, cap = next_pow2(n)
+    # = 2^20: a wavefront of 4,096 live slots (sorted), then padding n
+    big = 1 << (g.n - 1).bit_length()
+    x1, m1, f_live = frontier_inputs(torch, g, 1, FRONTIER_CAP, seed=21)
+    f_big = torch.full((big,), g.n, dtype=torch.int32, device=dev)
+    f_big[:FRONTIER_CAP] = f_live
+    x1, m1 = x1[0].contiguous(), m1[0].contiguous()
+    a_big = (x1[None], m1[None], f_big, csr.indptr, csr.dst, csr.w,
+             csr.max_out_deg)
+    want_big = ref.frontier_relax_ref(*a_big)[0]
+    plain_big = time_ms(torch, lambda: ref.frontier_relax_ref(*a_big))
+    plain_big_dev = device_ms(torch, lambda: ref.frontier_relax_ref(*a_big))
+    live_deg = csr.indptr[f_live.long() + 1] - csr.indptr[f_live.long()]
+    cells = int(live_deg.sum())
+    # the kernel reads every buffer slot, indptr twice and x and the mask
+    # once a live slot, dst and w a live cell, and writes the +inf-filled
+    # output once
+    b_ms, b_by = bound(4 * big + 13 * FRONTIER_CAP + 8 * cells + 4 * g.n,
+                       cells)
+    b1_op(x1, m1, f_big, want_big, f"cap 2^20 ({FRONTIER_CAP} live)",
+          plain_big, plain_big_dev, b_ms, b_by)
+    del f_big, a_big, want_big
+
     # fused edge cases: an all-padding buffer; n=1001 with a partial and a
     # full buffer (every vertex, then padding) and duplicate targets
     x2, m2, _ = frontier_inputs(torch, g, 2, cap, seed=3)
@@ -393,7 +439,7 @@ def kernel_phase(torch, pt):
         a3 = (x3, m3, f3, sc.indptr, sc.dst, sc.w, sc.max_out_deg)
         held("frontier_relax_csr", frontier_relax_csr(*a3),
              ref.frontier_relax_ref(*a3), f"n=1001 B=3 {what} buffer")
-        held("frontier_relax_csr", ops.frontier_relax(
+        held("frontier_relax", ops.frontier_relax(
             x3[0].contiguous(), sc, f3, m3[0].contiguous()),
             ref.frontier_relax_ref(*a3)[0], f"n=1001 {what} (B1 op)")
     # tgt/cand edge cases: all padding, all +inf, n not a multiple of the
@@ -828,6 +874,7 @@ def main_path(torch, pt):
                                         "frontier")
     runs["grid/frontier"] = r = solve_timed(torch, solver, "grid frontier",
                                             s0, batch)
+    r["solve_batch"]["sources"] = batch     # [p2p] reuses this batch
     check(r["solve"]["launches"]["frontier_relax_csr"] > 0 and
           r["solve_batch"]["launches"]["frontier_relax_csr"] > 0,
           "the frontier route launched no fused frontier relax")
@@ -914,74 +961,188 @@ def sync_debugged(torch, fn):
     return out, launches, hidden
 
 
-def same_batch(torch, a, b) -> bool:
-    """Two batch results bitwise equal: dist, C, fixed, rounds, fixed_by
-    and, where there is one, edges_relaxed."""
-    return (torch.equal(a.dist.cpu(), b.dist.cpu())
-            and torch.equal(a.C.cpu(), b.C.cpu())
-            and torch.equal(a.fixed.cpu(), b.fixed.cpu())
-            and np.array_equal(a.rounds, b.rounds)
-            and a.fixed_by == b.fixed_by
-            and (a.edges_relaxed is None
-                 or np.array_equal(a.edges_relaxed, b.edges_relaxed)))
+def batch_rows(res) -> dict:
+    """A batch or fleet result's fields as host values (numpy arrays,
+    lists), the form both sides of ``[parity]`` are compared in."""
+    return dict(
+        dist=res.dist.cpu().numpy(), C=res.C.cpu().numpy(),
+        fixed=res.fixed.cpu().numpy(),
+        rounds=np.asarray(res.rounds).tolist(), fixed_by=res.fixed_by,
+        edges=None if res.edges_relaxed is None
+        else np.asarray(res.edges_relaxed).tolist(),
+        host_syncs=res.host_syncs, partial=getattr(res, "partial", None))
+
+
+def bidi_rows(r) -> dict:
+    """A ``BidiResult``'s fields as host values (f32 bits of distance and
+    mu)."""
+    return dict(
+        D=r.D.cpu().numpy(), C=r.C.cpu().numpy(),
+        fixed=r.fixed.cpu().numpy(), rounds=r.rounds, fixed_by=r.fixed_by,
+        meeting=r.meeting, edges=r.edges_relaxed, path=r.path(),
+        host_syncs=r.host_syncs,
+        distance=np.float32(r.distance).tobytes(),
+        mu=np.float32(r.mu).tobytes())
+
+
+def same_rows(a, b) -> bool:
+    """Two ``*_rows`` structures equal, arrays bitwise and of one dtype."""
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(same_rows(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (list, tuple)):
+        return len(a) == len(b) and all(same_rows(x, y)
+                                        for x, y in zip(a, b))
+    if isinstance(a, np.ndarray):
+        return a.dtype == b.dtype and np.array_equal(a, b)
+    return a == b
+
+
+def parity_runs(torch, sssp, gen, family, n, device, c0, wrap):
+    """Every ``[parity]`` run of one family on ``device``, each group of
+    runs through ``wrap(fn) -> (result, launches, uncounted syncs)``:
+    the card's sync debug mode, or a plain call on the CPU.
+
+    * ``DynamicSolver`` on "auto" and "pallas": a cold ``solve_batch``, a
+      warm update of 64 random edges (stats included) and the resolved
+      rows, then a targeted ``solve_batch`` seeded with ``c0`` (the card
+      index's seeds, the same on both sides);
+    * ``BidirectionalSolver`` on "segment" and "frontier": two pairs;
+    * a 3-member fleet (seeds 2-4) on "segment" and "frontier": a cold
+      ``solve``, ``update`` with per-member deltas and ``resolve``.  The
+      frontier route's maintenance walks gather ``[cap, max_out_deg,
+      max_in_deg]`` cells a chunk, 4,096 x 6,507^2 for power_law at 2^14:
+      that family's frontier fleet runs at 2^9 with a buffer of 64 (its
+      overflow rounds relax densely).
+
+    Returns ``{(kind, route): (rows, launches, uncounted)}``."""
+    out = {}
+    nn, src, dst, w = gen.make(family, n, seed=1)
+    g = sssp.build_graph(nn, src, dst, w, device=device)
+    sources, targets = [0, nn // 2], [nn - 1, nn // 3]
+    c0 = torch.as_tensor(c0, device=device)
+    for be in ("auto", "pallas"):
+        dyn = sssp.DynamicSolver(g, backend=be, device=device)
+        delta = sssp.random_delta(g, 64, seed=5)
+        (cold, stats, warm, p2p), lc, hidden = wrap(lambda: (
+            dyn.solve_batch(sources), dyn.update(delta),
+            dyn.resolve(sources),
+            dyn.solve_batch(sources, targets=targets, C0=c0)))
+        out[("dynamic", dyn.backend)] = (dict(
+            cold=batch_rows(cold), stats=stats, warm=batch_rows(warm),
+            p2p=batch_rows(p2p)), lc, hidden)
+    pairs = [(0, nn - 1), (nn // 2, nn // 3)]
+    for be in ("segment", "frontier"):
+        bidi = sssp.BidirectionalSolver(g, backend=be, device=device)
+        res, lc, hidden = wrap(lambda: [bidi.solve(s, t) for s, t in pairs])
+        out[("bidi", be)] = ([bidi_rows(r) for r in res], lc, hidden)
+    for be in ("segment", "frontier"):
+        hub = be == "frontier" and family == "power_law"
+        arrays = [gen.make(family, PARITY_HUB_N if hub else nn, seed=s)
+                  for s in (2, 3, 4)]
+        nb = arrays[0][0]
+        fleet = sssp.build_fleet(arrays, device=device)
+        deltas = sssp.stack_deltas([
+            sssp.random_delta(m, 16 + 8 * i, seed=7 + i)
+            for i, m in enumerate(fleet.members())])
+        fs = sssp.FleetSolver(fleet, backend=be,
+                              frontier_cap=64 if hub else None)
+        (cold, stats, warm), lc, hidden = wrap(lambda: (
+            fs.solve([0, nb // 2, nb - 1]), fs.update(deltas),
+            fs.resolve()))
+        out[("fleet", be)] = (dict(n=nb, cold=batch_rows(cold), stats=stats,
+                                   warm=batch_rows(warm)), lc, hidden)
+    return out
+
+
+def parity_cpu(family, n, c0):
+    """The CPU side of one family's ``[parity]`` runs, in a worker
+    process (the plain versions of the kernels, 2 threads)."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch import sssp
+    from repro_torch.core import generators
+    torch.set_num_threads(2)
+    return parity_runs(torch, sssp, generators, family, n, "cpu", c0,
+                       lambda fn: (fn(), {}, []))
 
 
 def cpu_parity_phase(torch, pt):
     """The card's solves equal the port's CPU solves (plain versions)
-    bitwise on 2^14-vertex graphs of every family, on the auto route and
-    the pallas route: a cold ``solve_batch``, then a warm update of 64
-    random edges (its stats too: sweeps, tainted, warm rounds, host
-    reads) and the resolved rows, then a targeted ``solve_batch`` seeded
-    from the card's 4-landmark index (the same seeds on both sides).
-    The card's runs go under torch's sync debug mode, which names every
-    host sync the engine's own count misses."""
+    bitwise on 2^14-vertex graphs of every family (``parity_runs``: warm
+    updates and seeded targeted batches on two routes, bidirectional
+    pairs and 3-member fleets on two routes each).  The card's runs go
+    under torch's sync debug mode, which names every host sync the
+    engine's own count misses.  The CPU sides run in 3 worker processes
+    while the card runs its side (the seeds, from the card's 4-landmark
+    indexes, are made for every family first)."""
+    import concurrent.futures
+    import multiprocessing
     gen, sssp = pt["generators"], pt["sssp"]
     n = PARITY_N
+
+    def card(fn):
+        return sync_debugged(torch, fn)
+    seeds = {}
     for family in gen.FAMILIES:
         nn, src, dst, w = gen.make(family, n, seed=1)
-        g_cpu = sssp.build_graph(nn, src, dst, w, device="cpu")
-        g_gpu = g_cpu.to(DEVICE)
-        sources, targets = [0, nn // 2], [nn - 1, nn // 3]
-        c0_gpu = sssp.LandmarkIndex(g_gpu, k=4, seed=1).seed_batch(sources)
-        c0_cpu = c0_gpu.cpu()      # the same seeds for both runs
-        for be in ("auto", "pallas"):
-            s_gpu = sssp.DynamicSolver(g_gpu, backend=be)
-            s_cpu = sssp.DynamicSolver(g_cpu, backend=be, device="cpu")
-            d_gpu = sssp.random_delta(g_gpu, 64, seed=5)
-            d_cpu = sssp.random_delta(g_cpu, 64, seed=5)
-            what = f"{family}/{s_gpu.backend}"
+        g = sssp.build_graph(nn, src, dst, w, device=DEVICE)
+        seeds[family] = sssp.LandmarkIndex(g, k=4, seed=1).seed_batch(
+            [0, nn // 2]).cpu().numpy()
+    with concurrent.futures.ProcessPoolExecutor(
+            3, mp_context=multiprocessing.get_context("spawn")) as pool:
+        jobs = {f: pool.submit(parity_cpu, f, n, c0)
+                for f, c0 in seeds.items()}
+        done = [(f, parity_runs(torch, sssp, gen, f, n, DEVICE, c0, card))
+                for f, c0 in seeds.items()]
+        for family, on_card in done:
+            on_cpu = jobs[family].result()
+            for key, (rows, launches, hidden) in on_card.items():
+                parity_check(family, key, rows, on_cpu[key][0], launches,
+                             hidden)
 
-            def card_runs():
-                cold = s_gpu.solve_batch(sources)
-                stats = s_gpu.update(d_gpu)
-                warm = s_gpu.resolve(sources)
-                p2p = s_gpu.solve_batch(sources, targets=targets, C0=c0_gpu)
-                return cold, stats, warm, p2p
-            (a, st_a, wa, pa), launches, hidden = sync_debugged(torch,
-                                                                card_runs)
-            b = s_cpu.solve_batch(sources)
-            st_b = s_cpu.update(d_cpu)
-            wb = s_cpu.resolve(sources)
-            pb = s_cpu.solve_batch(sources, targets=targets, C0=c0_cpu)
-            ok = same_batch(torch, a, b)
-            ok_warm = st_a == st_b and same_batch(torch, wa, wb)
-            ok_p2p = same_batch(torch, pa, pb) and pa.partial
-            log(f"  {family:10s} {s_gpu.backend:8s} card == cpu: cold "
-                f"{ok}, warm {ok_warm}, seeded targeted {ok_p2p} (rounds "
-                f"{a.rounds.tolist()} / warm {st_a['warm_rounds']}, sweeps "
-                f"{st_a['sweeps']}, tainted {st_a['tainted']} / targeted "
-                f"{pa.rounds.tolist()}; host syncs {a.host_syncs} / "
-                f"{st_a['host_syncs']} / {pa.host_syncs}; launches "
-                f"{launches}, uncounted {hidden})")
-            check(ok, f"{what}: card and CPU differ")
-            check(ok_warm, f"{what}: the warm update differs card to CPU "
-                           f"({st_a} against {st_b})")
-            check(ok_p2p, f"{what}: the seeded targeted batch differs card "
-                          "to CPU")
-            check(not hidden, f"{what}: host syncs the engine does not "
-                              f"count at {hidden}")
-            if s_gpu.backend in ("frontier", "pallas"):
-                check(bool(launches), f"{what}: no kernel launched")
+
+def parity_check(family, key, a, b, launches, hidden) -> None:
+    """One group of ``[parity]`` runs: the card's rows ``a`` against the
+    CPU's ``b``, logged and checked (no uncounted sync; the kernels the
+    route must launch)."""
+    kind, be = key
+    what = f"{family}/{kind} {be}"
+    ok = same_rows(a, b)
+    if kind == "dynamic":
+        st = a["stats"]
+        log(f"  {family:10s} {be:8s} card == cpu: {ok} (rounds "
+            f"{a['cold']['rounds']} / warm {st['warm_rounds']}, sweeps "
+            f"{st['sweeps']}, tainted {st['tainted']} / targeted "
+            f"{a['p2p']['rounds']}; host syncs {a['cold']['host_syncs']} / "
+            f"{st['host_syncs']} / {a['p2p']['host_syncs']}; launches "
+            f"{launches}, uncounted {hidden})")
+        check(a["p2p"]["partial"], f"{what}: the targeted batch is not "
+                                   "partial")
+        if be in ("frontier", "pallas"):
+            check(bool(launches), f"{what}: no kernel launched")
+    elif kind == "bidi":
+        rounds = [r["rounds"] for r in a]
+        log(f"  {family:10s} bidi {be:8s} card == cpu: {ok} (rounds "
+            f"{rounds}, distances "
+            f"{[float(np.frombuffer(r['distance'], np.float32)[0]) for r in a]}"
+            f", host reads {[r['host_syncs'] for r in a]}; launches "
+            f"{launches}, uncounted {hidden})")
+        b1 = launches.get("frontier_relax", 0)
+        check(b1 == (2 * sum(rounds) if be == "frontier" else 0),
+              f"{what}: B1 launched {b1} times in {rounds} rounds")
+    else:
+        st = a["stats"]
+        log(f"  {family:10s} fleet {be:8s} n={a['n']} card == cpu: {ok} "
+            f"(rounds {a['cold']['rounds']} / warm {st['warm_rounds']}, "
+            f"host reads {a['cold']['host_syncs']} / {st['host_syncs']}; "
+            f"launches {launches}, uncounted {hidden})")
+        if be == "frontier":
+            check(launches.get("frontier_relax_csr", 0) > 0,
+                  f"{what}: no B2 launched")
+    check(ok, f"{what}: card and CPU differ")
+    check(not hidden, f"{what}: host syncs the engine does not count at "
+                      f"{hidden}")
 
 
 def timed_run(torch, fn):
@@ -1016,6 +1177,7 @@ def dynamic_phase(torch, pt):
     gen, sssp = pt["generators"], pt["sssp"]
     dev = torch.device(DEVICE)
     runs = []
+    keep = {}
     routes = (("grid", gen.grid(GRID_SIDE, seed=0), "auto", "frontier"),
               ("gnp", gen.gnp(GNP_N, avg_deg=8.0, seed=0), "auto",
                "segment"),
@@ -1081,6 +1243,9 @@ def dynamic_phase(torch, pt):
             if dyn.backend == "frontier":
                 check(lc["frontier_relax_csr"] > 0, "[dynamic] the frontier "
                       "update launched no fused frontier relax")
+                # [bidi] refreshes pairs of these sources after this delta
+                keep[name] = dict(sources=list(sources), dist=cold.dist,
+                                  w=dyn.graph.w)
             if dyn.backend == "pallas":
                 check(lc["relax_ell"] > 0 and lc["masked_min_pair"] == wr,
                       f"[dynamic] the pallas update launched B4 "
@@ -1089,10 +1254,10 @@ def dynamic_phase(torch, pt):
         del dyn, cold_solver
     del g
     torch.cuda.empty_cache()
-    return runs
+    return runs, keep
 
 
-def p2p_phase(torch, pt):
+def p2p_phase(torch, pt, main_runs):
     """Landmark-seeded targeted queries at n = 2^20.  gnp: an 8-landmark
     index on its default segment backend, 64 (s, t) pairs (seed 2024) in
     batches of 8 through "auto" (segment) and "pallas", each batch
@@ -1103,10 +1268,15 @@ def p2p_phase(torch, pt):
     <= the full distances.  Then the gnp index takes the [dynamic] gnp
     delta; its refreshed tables are held bitwise against cold solves of
     the mutated graph and of its reverse.  Returns the launch counts of
-    every counted run."""
+    every counted run, and per graph what ``[bidi]`` reuses: the graph,
+    its index, the pairs, the untargeted distances at the targets and
+    each pair's rounds untargeted, targeted and seeded (on the first
+    route).  The grid's untargeted batch is the main path's frontier
+    ``solve_batch`` of the same 8 sources (one 40 s solve, not two)."""
     gen, sssp = pt["generators"], pt["sssp"]
     dev = torch.device(DEVICE)
     runs = []
+    keep = {}
     plan = (("gnp", gen.gnp(GNP_N, avg_deg=8.0, seed=0), "segment", 64,
              ("auto", "pallas")),
             ("grid", gen.grid(GRID_SIDE, seed=0), "pallas", 8, ("auto",)))
@@ -1123,6 +1293,8 @@ def p2p_phase(torch, pt):
         log(f"  {name}: LandmarkIndex(k=8, backend={index_be!r}) built in "
             f"{build_ms:.1f} ms (landmarks {index.landmarks.tolist()}), "
             f"launches {nonzero(lc)}")
+        mine = keep[name] = dict(g=g, index=index, s=s_all, t=t_all,
+                                 dist_t=[], rounds={})
         for be in routes:
             solver = sssp.Solver(g, backend=be)
             what = f"{name} {solver.backend}"
@@ -1138,9 +1310,15 @@ def p2p_phase(torch, pt):
                                  ("targeted", dict(targets=tb)),
                                  ("seeded targeted", dict(targets=tb,
                                                           C0=c0))):
-                    res, ms, lc = timed_run(
-                        torch, lambda: solver.solve_batch(sb, **kw))
-                    runs.append(lc)
+                    hit = main_runs.get(f"{name}/{solver.backend}", {}).get(
+                        "solve_batch", {})
+                    if kind == "untargeted" and hit.get("sources") == [
+                            int(v) for v in sb]:
+                        res, ms, lc = hit["res"], hit["ms"], hit["launches"]
+                    else:
+                        res, ms, lc = timed_run(
+                            torch, lambda: solver.solve_batch(sb, **kw))
+                        runs.append(lc)
                     r = int(res.rounds.max())
                     tot[kind][0] += ms
                     tot[kind][1] += r
@@ -1156,6 +1334,11 @@ def p2p_phase(torch, pt):
                 full = got["untargeted"]
                 lanes = torch.arange(len(sb), device=dev)
                 tt = torch.as_tensor(tb, device=dev)
+                if be == routes[0]:
+                    mine["dist_t"].append(full.dist[lanes, tt].cpu().numpy())
+                    for kind, res in got.items():
+                        mine["rounds"].setdefault(kind, []).extend(
+                            int(r) for r in res.rounds)
                 for kind in ("targeted", "seeded targeted"):
                     res = got[kind]
                     check(res.partial and torch.equal(
@@ -1200,15 +1383,332 @@ def p2p_phase(torch, pt):
                 f"graph and its reverse: {ok}")
             check(ok, "[p2p] the refreshed landmark tables differ from cold "
                       "solves of the mutated graph")
+            # [bidi] wants the index of the unmutated graph
+            index = sssp.LandmarkIndex(g, k=8, backend=index_be)
+            mine["index"] = index
+        mine["dist_t"] = np.concatenate(mine["dist_t"])
         del index, g
         torch.cuda.empty_cache()
+    return runs, keep
+
+
+def edge_table(n, src, dst, w):
+    """The graph's edges keyed ``u * n + v``, sorted, for ``edge_fold``."""
+    key = src.astype(np.int64) * n + dst
+    order = np.argsort(key, kind="stable")
+    return n, key[order], w[order]
+
+
+def edge_fold(table, path):
+    """The f32 left-to-right fold of ``path``'s edge weights (the least
+    of parallel edges) over an ``edge_table``, or None if a step is not
+    an edge."""
+    n, key, w = table
+    p = np.asarray(path, np.int64)
+    want = p[:-1] * n + p[1:]
+    lo = np.searchsorted(key, want, side="left")
+    hi = np.searchsorted(key, want, side="right")
+    if (hi <= lo).any():
+        return None
+    d = np.float32(0.0)
+    for a, b in zip(lo, hi):
+        d = np.float32(d + w[a:b].min())
+    return d
+
+
+def check_bidi_distance(res, want, table, what, tally):
+    """A bidirectional answer against the full solve's ``want = dist[t]``:
+    unreachable alike; else ``distance`` is the f32 fold of ``path()``,
+    a path of real edges from s to t, bitwise, and ``distance`` and ``mu``
+    are within rtol 1e-4 of ``want`` (the tolerance of every distance
+    check against scipy).  The stitched path takes parents within the
+    reference's tolerance (``atol = 1e-5 * (1 + D)``), so on a near-tie it
+    can be near-shortest and fold above ``dist[t]``: ``tally`` counts the
+    solves whose distance and mu are bitwise ``dist[t]`` and the largest
+    gap in ulps."""
+    tally["solves"] += 1
+    if not np.isfinite(want):
+        check(not np.isfinite(res.distance) and res.path() is None,
+              f"{what} ({res.source}, {res.target}): reachable, but the "
+              "full solve says not")
+        tally["distance"] += 1
+        tally["mu"] += 1
+        return
+    path = res.path()
+    check(path is not None and path[0] == res.source
+          and path[-1] == res.target, f"{what}: no s-t path")
+    fold = edge_fold(table, path)
+    check(fold is not None and fold.tobytes()
+          == np.float32(res.distance).tobytes(), f"{what} ({res.source}, "
+          f"{res.target}): the path is not made of edges that fold to the "
+          "distance")
+    for name, x in (("distance", res.distance), ("mu", res.mu)):
+        check(abs(x - float(want)) <= 1e-4 * abs(float(want)),
+              f"{what} ({res.source}, {res.target}): {name} {x!r} is not "
+              f"within rtol 1e-4 of dist[t] {float(want)!r}")
+        x32 = np.float32(x)
+        tally[name] += int(x32.tobytes() == want.tobytes())
+        gap = abs(int(x32.view(np.int32)) - int(want.view(np.int32)))
+        tally["ulps"] = max(tally["ulps"], gap)
+
+
+def tally_text(t) -> str:
+    return (f"distance bitwise dist[t] in {t['distance']} of {t['solves']} "
+            f"solves, mu in {t['mu']}, largest gap {t['ulps']} ulps; every "
+            "path real edges folding to the distance")
+
+
+def bidi_phase(torch, pt, p2p, dyn):
+    """Bidirectional point-to-point queries at n = 2^20 on ``[p2p]``'s
+    graphs and pairs (seed 2024): the 8 grid pairs through "auto"
+    (frontier) and the first 16 gnp pairs through "auto" (segment), each
+    unseeded and seeded from ``[p2p]``'s landmark index.  Each answer is
+    held to ``[p2p]``'s untargeted ``dist[t]`` (``check_bidi_distance``:
+    the path real edges folding to the distance bitwise, distance and mu
+    near ``dist[t]``, the bitwise matches counted), a frontier round
+    launches B1 exactly twice (a segment round never), and a solve reads
+    the host once a round plus 3 times.  Then ``update`` with
+    ``[dynamic]``'s 1,024-edge delta refreshes 2 grid and 8 gnp pairs
+    warm: each forward lane bitwise a cold solve of the mutated graph
+    (``[dynamic]``'s for the grid's sources) and within rtol 1e-4 of
+    scipy.  Returns the launch
+    counts of every counted run."""
+    sssp = pt["sssp"]
+    runs = []
+    for name, want_be, pairs, n_warm in (("grid", "frontier", 8, 2),
+                                          ("gnp", "segment", 16, 8)):
+        st = p2p[name]
+        g, index = st["g"], st["index"]
+        n, e = g.n, g.e
+        host = (g.src[:e].cpu().numpy(), g.dst[:e].cpu().numpy())
+        table = edge_table(n, *host, g.w[:e].cpu().numpy())
+        bidi, build_ms, _ = timed_run(
+            torch, lambda: sssp.BidirectionalSolver(g, backend="auto"))
+        what = f"{name} {bidi.backend}"
+        log(f"  {what}: BidirectionalSolver built in {build_ms:.1f} ms "
+            f"(cap {bidi.frontier_cap})")
+        check(bidi.backend == want_be, f"[bidi] {name}: auto routed to "
+                                       f"{bidi.backend}, not {want_be}")
+        tot = {k: [0.0, 0, 0] for k in ("unseeded", "seeded")}
+        tally = dict(solves=0, distance=0, mu=0, ulps=0)
+        kept = []
+        for i in range(pairs):
+            s, t = int(st["s"][i]), int(st["t"][i])
+            want = np.float32(st["dist_t"][i])
+            for kind in ("unseeded", "seeded"):
+                c0 = index.seed_pair(s, t) if kind == "seeded" else None
+                res, ms, lc = timed_run(torch, lambda: bidi.solve(s, t,
+                                                                  C0=c0))
+                runs.append(lc)
+                tot[kind][0] += ms
+                tot[kind][1] += res.rounds
+                tot[kind][2] += res.host_syncs
+                check_bidi_distance(res, want, table,
+                                    f"[bidi] {what} {kind}", tally)
+                check(res.host_syncs == res.rounds + (
+                    3 if np.isfinite(want) else 2),
+                      f"[bidi] {what}: {res.host_syncs} host reads in "
+                      f"{res.rounds} rounds")
+                b1 = lc["frontier_relax"]
+                check(b1 == (2 * res.rounds if bidi.backend == "frontier"
+                             else 0), f"[bidi] {what} {kind}: B1 launched "
+                      f"{b1} times in {res.rounds} rounds")
+                if kind == "unseeded" and i < n_warm:
+                    kept.append((s, t, res.D, res.fixed))
+        r = st["rounds"]
+        log(f"  {what}: {pairs} pairs; rounds a pair unseeded "
+            f"{tot['unseeded'][1] / pairs:.1f}, seeded "
+            f"{tot['seeded'][1] / pairs:.1f}; [p2p] untargeted "
+            f"{np.mean(r['untargeted'][:pairs]):.1f}, targeted "
+            f"{np.mean(r['targeted'][:pairs]):.1f}, seeded targeted "
+            f"{np.mean(r['seeded targeted'][:pairs]):.1f}; ms a pair "
+            f"unseeded {tot['unseeded'][0] / pairs:.1f}, seeded "
+            f"{tot['seeded'][0] / pairs:.1f}; host reads a pair "
+            f"{tot['unseeded'][2] / pairs:.1f} / "
+            f"{tot['seeded'][2] / pairs:.1f} (rounds + 3); {tally_text(tally)}"
+            f"; B1 launches 2 a round: {bidi.backend == 'frontier'}")
+
+        delta = sssp.random_delta(g, 1024, seed=11)      # [dynamic]'s
+        out, up_ms, lc = timed_run(torch, lambda: bidi.update(delta,
+                                                              warm=kept))
+        runs.append(lc)
+        sources = [s for s, _, _, _ in kept]
+        old = dyn.get(name)
+        if old is not None and all(s in old["sources"] for s in sources):
+            check(torch.equal(old["w"], bidi.graph.w), "[bidi] the grid "
+                  "delta differs from [dynamic]'s")
+            cold = old["dist"][[old["sources"].index(s) for s in sources]]
+            cold_what = "[dynamic]'s cold re-solve"
+        else:
+            cold = sssp.Solver(bidi.graph, backend="segment").solve_batch(
+                sources).dist
+            cold_what = "a cold segment solve_batch"
+        rounds = []
+        tally = dict(solves=0, distance=0, mu=0, ulps=0)
+        w1 = bidi.graph.w[:e].cpu().numpy()
+        table = edge_table(n, *host, w1)
+        for i, (s, t, _, _) in enumerate(kept):
+            res = out[(s, t)]
+            rounds.append(res.rounds)
+            check(torch.equal(res.D[0], cold[i]), f"[bidi] {what}: the "
+                  f"refreshed forward lane of ({s}, {t}) differs from "
+                  f"{cold_what} of the mutated graph")
+            check_bidi_distance(res, np.float32(cold[i, t].item()), table,
+                                f"[bidi] {what} refreshed", tally)
+        against_scipy(torch, [out[(s, t)].D[0] for s, t, _, _ in kept[:2]],
+                      n, *host, bidi.graph.w[:e].cpu().numpy(), sources[:2],
+                      f"[bidi] {what} refreshed forward lane")
+        log(f"  {what} update(1024 edges, warm={len(kept)} pairs): "
+            f"{up_ms:.1f} ms, warm rounds {rounds}; every forward lane "
+            f"bitwise {cold_what}; {tally_text(tally)}")
+        del bidi, out, kept, cold
+        torch.cuda.empty_cache()
+    return runs
+
+
+def fleet_phase(torch, pt):
+    """Graph fleets: F = 8 grids of side 512 (seeds 0-7; n = 2^18 and
+    1,046,528 edges each).  A segment ``FleetSolver``'s ``solve`` (one
+    source a member, seed 2024) and ``solve_batch`` [8, 8], every member
+    bitwise a per-graph ``Solver(backend="segment")`` solve, host reads
+    rounds + 2 whatever F; ``update`` with stacked deltas of 128 + 32 f
+    random edges a member (x uniform[0.5, 2.0]) and ``resolve``, bitwise a
+    cold solve of each mutated member; a frontier fleet of the first 2
+    members, bitwise the segment fleet's rows, B2 launched.  Then
+    ``CongestionReplay`` over 8 grids of side 256 for 6 ticks with a
+    dropout at tick 3 and a straggler at tick 4, bitwise a fault-free
+    replay.  Returns the launch counts of every counted run."""
+    gen, sssp = pt["generators"], pt["sssp"]
+    from repro_torch.distributed.fault import FaultInjector
+    from repro_torch.runtime.fleet import CongestionReplay
+    runs = []
+    F = 8
+    fleet, build_ms, _ = timed_run(torch, lambda: sssp.build_fleet(
+        [gen.grid(FLEET_SIDE, seed=f) for f in range(F)]))
+    n = fleet.n
+    log(f"  fleet: {F} grids side {FLEET_SIDE}, n={n}, e={fleet.es[0]} "
+        f"each ({sum(fleet.es):,} in all), e_pad {fleet.e_pad}; built in "
+        f"{build_ms:.1f} ms")
+    rng = np.random.default_rng(2024)
+    src = rng.choice(n, F, replace=False)
+    batch = rng.choice(n, (F, 8), replace=False)
+    fs = sssp.FleetSolver(fleet)
+    members = fleet.members()
+    solvers = [sssp.Solver(m, backend="segment") for m in members]
+
+    def per_graph(kind, fn):
+        """Each member's own solves, timed; (results, summed ms)."""
+        outs, total = [], 0.0
+        for f in range(F):
+            r, ms, lc = timed_run(torch, lambda: fn(f))
+            runs.append(lc)
+            outs.append(r)
+            total += ms
+        return outs, total
+
+    for kind, run, own in (
+            ("solve", lambda: fs.solve(src),
+             lambda f: solvers[f].solve(int(src[f]))),
+            ("solve_batch [8, 8]", lambda: fs.solve_batch(batch),
+             lambda f: solvers[f].solve_batch(batch[f]))):
+        res, ms, lc = timed_run(torch, run)
+        runs.append(lc)
+        if kind == "solve":
+            cold_fleet = res
+        refs, ref_ms = per_graph(kind, own)
+        rmax = int(res.rounds.max())
+        for f in range(F):
+            if kind == "solve":
+                ok = same(torch, res.result(f), refs[f])
+            else:
+                ok = all(same(torch, res.result(f, i), refs[f][i])
+                         for i in range(batch.shape[1]))
+            check(ok, f"[fleet] {kind}: member {f} differs from its "
+                      "per-graph segment solve")
+        check(res.host_syncs == rmax + 2, f"[fleet] {kind}: "
+              f"{res.host_syncs} host reads in {rmax} rounds (want rounds "
+              "+ 2 at any F)")
+        log(f"  segment fleet {kind}: {ms:.1f} ms against {ref_ms:.1f} ms "
+            f"for the 8 per-graph solves ({ms / ref_ms:.3f}); rounds "
+            f"{rmax} (members {res.rounds.min()}-{rmax}), host reads "
+            f"{res.host_syncs} (rounds + 2; per-graph "
+            f"{[r.host_syncs for r in refs]}), launches {nonzero(lc)}; "
+            "every member bitwise its per-graph solve")
+
+    deltas = [sssp.random_delta(members[f], 128 + 32 * f, seed=100 + f)
+              for f in range(F)]
+    stacked = sssp.stack_deltas(deltas)
+    stats, up_ms, lc = timed_run(torch, lambda: fs.update(stacked))
+    runs.append(lc)
+    res = fs.resolve()
+    colds, cold_ms = per_graph("cold", lambda f: sssp.Solver(
+        fs.fleet.member(f), backend="segment").solve(int(src[f])))
+    for f in range(F):
+        r = res.result(f)
+        check(torch.equal(r.dist, colds[f].dist)
+              and torch.equal(r.C, colds[f].C)
+              and torch.equal(r.fixed, colds[f].fixed),
+              f"[fleet] update: member {f} differs from a cold solve of "
+              "its mutated graph")
+    log(f"  segment fleet update ({stacked.k} edges, {stacked.ks[0]}-"
+        f"{stacked.ks[-1]} a member): {up_ms:.1f} ms against "
+        f"{cold_ms:.1f} ms for 8 cold per-graph solves; warm rounds "
+        f"{stats['warm_rounds']}, sweeps {stats['sweeps']}, tainted "
+        f"{stats['tainted']}, host reads {stats['host_syncs']}; every "
+        "member bitwise a cold solve of its mutated graph")
+
+    front = sssp.FleetSolver(sssp.GraphFleet.stack(members[:2]),
+                             backend="frontier")
+    fr, f_ms, lc = timed_run(torch, lambda: front.solve(src[:2]))
+    runs.append(lc)
+    check(all(same(torch, fr.result(f), cold_fleet.result(f))
+              for f in range(2)), "[fleet] the frontier fleet differs from "
+                                  "the segment fleet's rows")
+    check(lc["frontier_relax_csr"] > 0, "[fleet] the frontier fleet "
+                                        "launched no B2")
+    log(f"  frontier fleet of 2 members (cap {front.frontier_cap}): "
+        f"{f_ms:.1f} ms, rounds {fr.rounds.tolist()}, edges_relaxed "
+        f"{fr.edges_relaxed.tolist()}, host reads {fr.host_syncs}, "
+        f"launches {nonzero(lc)}; bitwise the segment fleet's rows")
+    del fs, front, fleet, members, solvers, res, colds, cold_fleet
+    torch.cuda.empty_cache()
+
+    def replay(fault):
+        fl = sssp.build_fleet([gen.grid(REPLAY_SIDE, seed=f)
+                               for f in range(F)])
+        rp = CongestionReplay(sssp.FleetSolver(fl), seed=5, ckpt_every=4,
+                              queries_per_tick=4, fault=fault,
+                              straggler_z=2.0)
+        t0 = time.perf_counter()
+        stats = rp.run(6)
+        return rp, stats, time.perf_counter() - t0
+    (clean, _, c_s), _, lc_c = timed_run(torch, lambda: replay(None))
+    (chaos, st, x_s), _, lc_x = timed_run(torch, lambda: replay(
+        FaultInjector({3: ("dropout", 0), 4: ("straggler", 200)})))
+    runs += [lc_c, lc_x]
+    ok = (np.array_equal(clean.weights(), chaos.weights())
+          and np.array_equal(clean.distances(), chaos.distances()))
+    log(f"  CongestionReplay {F} grids side {REPLAY_SIDE}, 6 ticks: "
+        f"fault-free {c_s:.2f} s ({6 / c_s:.3f} ticks/s); dropout at tick "
+        f"3 + straggler at tick 4: {x_s:.2f} s, {st['ticks']} ticks run "
+        f"({st['ticks'] / x_s:.3f} ticks/s), restarts {st['restarts']}, "
+        f"stragglers flagged {st['stragglers_flagged']}, queries "
+        f"{st['queries']}, cache hits {st['cache_hits']}, fleet dispatches "
+        f"{st['fleet_dispatches']}; weights and distances bitwise the "
+        f"fault-free replay's: {ok}")
+    check(ok, "[fleet] the replay after a dropout differs from the "
+              "fault-free replay")
+    check(st["restarts"] == 1 and st["stragglers_flagged"] >= 1,
+          f"[fleet] replay stats {st}")
     return runs
 
 
 def profile_phase(torch, pt, rounds: int = 400):
     """Device time by kernel over the first ``rounds`` rounds of each
-    main-path route (``torch.profiler``, CUDA activity), the device's busy
-    and idle share of the wall time, and launches a round."""
+    main-path route, of a grid bidirectional pair (frontier) and of a
+    segment fleet of 8 grids (``torch.profiler``, CUDA activity), the
+    device's busy and idle share of the wall time, and launches a
+    round."""
     import dataclasses
     from torch.profiler import ProfilerActivity, profile
     gen, sssp = pt["generators"], pt["sssp"]
@@ -1218,13 +1718,26 @@ def profile_phase(torch, pt, rounds: int = 400):
     grid = sssp.build_graph(n, src, dst, w, device=dev)
     n, src, dst, w = gen.gnp(GNP_N, avg_deg=8.0, seed=0)
     gnp = sssp.build_graph(n, src, dst, w, device=dev)
+    bidi = sssp.BidirectionalSolver(grid, cfg)
+    fleet = sssp.FleetSolver(sssp.build_fleet(
+        [gen.grid(FLEET_SIDE, seed=f) for f in range(8)]), cfg)
+    extra = {"grid bidi frontier": (("solve", lambda: bidi.solve(
+        1, grid.n - 1)),),
+        "fleet segment (8 grids side 512)": (
+            ("solve", lambda: fleet.solve(list(range(1, 17, 2)))),)}
     for what, g, be in (("grid frontier", grid, "auto"),
                         ("gnp segment", gnp, "auto"),
-                        ("gnp pallas", gnp, "pallas")):
-        solver = sssp.Solver(g, cfg, backend=be)
-        for kind, run in (("solve", lambda: solver.solve(1)),
-                          ("solve_batch", lambda: solver.solve_batch(
-                              [1, 5, 9, 13, 17, 21, 25, 29]))):
+                        ("gnp pallas", gnp, "pallas"),
+                        ("grid bidi frontier", None, None),
+                        ("fleet segment (8 grids side 512)", None, None)):
+        if g is None:
+            kinds = extra[what]
+        else:
+            solver = sssp.Solver(g, cfg, backend=be)
+            kinds = (("solve", lambda: solver.solve(1)),
+                     ("solve_batch", lambda: solver.solve_batch(
+                         [1, 5, 9, 13, 17, 21, 25, 29])))
+        for kind, run in kinds:
             run()
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CPU,
@@ -1233,7 +1746,7 @@ def profile_phase(torch, pt, rounds: int = 400):
                 res = run()
                 torch.cuda.synchronize()
                 wall_us = (time.perf_counter() - t0) * 1e6
-            r = (res.rounds if kind == "solve" else int(res.rounds.max()))
+            r = int(np.max(res.rounds))
             kern = _device_events(prof)
             busy = sum(_self_device_us(e) for e in kern)
             count = sum(e.count for e in kern)
@@ -1437,6 +1950,9 @@ def attention_entry_phase(torch):
 
 
 KERNELS = {
+    "frontier_relax": (
+        "src/repro_torch/kernels/csrc/frontier_relax.cu",
+        "src/repro/kernels/frontier_relax.py:117"),
     "frontier_scatter_min": (
         "src/repro_torch/kernels/csrc/frontier_relax.cu",
         "src/repro/kernels/frontier_relax.py:117"),
@@ -1507,10 +2023,19 @@ def main() -> int:
         return out
     runs = phase("main", "the SSSP main path, n = 2^20",
                  lambda: main_path(torch, pt))
-    runs_dyn = phase("dynamic", "warm re-solves after a weight delta, n = "
-                     "2^20", lambda: dynamic_phase(torch, pt))
-    runs_p2p = phase("p2p", "landmark-seeded targeted queries, n = 2^20",
-                     lambda: p2p_phase(torch, pt))
+    runs_dyn, dyn_keep = phase(
+        "dynamic", "warm re-solves after a weight delta, n = 2^20",
+        lambda: dynamic_phase(torch, pt))
+    runs_p2p, p2p_keep = phase(
+        "p2p", "landmark-seeded targeted queries, n = 2^20",
+        lambda: p2p_phase(torch, pt, runs))
+    runs_bidi = phase("bidi", "bidirectional point-to-point queries, n = "
+                      "2^20", lambda: bidi_phase(torch, pt, p2p_keep,
+                                                 dyn_keep))
+    del p2p_keep, dyn_keep
+    torch.cuda.empty_cache()
+    runs_fleet = phase("fleet", "graph fleets and congestion replay",
+                       lambda: fleet_phase(torch, pt))
     phase("parity", "card vs the port's CPU solve, 2^14 vertices",
           lambda: cpu_parity_phase(torch, pt))
     xd_launch = phase("xdeepfm", "scoring at the FULL config",
@@ -1523,7 +2048,8 @@ def main() -> int:
 
     main_launch = {k: 0 for k in KERNELS}
     launch_runs = [k["launches"] for r in runs.values() for k in r.values()]
-    for lc in launch_runs + runs_dyn + runs_p2p + [xd_launch, attn_launch]:
+    for lc in (launch_runs + runs_dyn + runs_p2p + runs_bidi + runs_fleet
+               + [xd_launch, attn_launch]):
         for k, v in lc.items():
             main_launch[k] += v
     kernels = []

@@ -5,17 +5,20 @@ Each graph function reads the fields of a reference ``Graph``/
 read through ``np.asarray``) and builds the port's container from the
 same arrays; ``delta_from_arrays`` does the same for a ``GraphDelta``,
 ``landmark_tables_from_arrays`` for a ``LandmarkIndex``'s two distance
-tables and ``xdeepfm_params_from_arrays`` for a parameter tree.  So both
-packages can be run on identical inputs.
+tables, ``fleet_from_arrays``, ``stacked_delta_from_arrays`` and
+``fleet_state_from_arrays`` for a ``GraphFleet``, a stacked delta and a
+``FleetSolver.state_dict()``, and ``xdeepfm_params_from_arrays`` for a
+parameter tree.  So both packages can be run on identical inputs.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from repro_torch.core.graph import (CsrGraph, EllGraph, Graph,
+from repro_torch.core.graph import (CsrGraph, EllGraph, Graph, GraphStack,
                                     ell_row_len, resolve_device)
 from repro_torch.core.sssp.dynamic import GraphDelta, _delta_from_host
+from repro_torch.core.sssp.fleet import GraphFleet, StackedDelta
 
 
 def _arr(x, dtype, device) -> torch.Tensor:
@@ -67,6 +70,54 @@ def delta_from_arrays(d, device=None) -> GraphDelta:
         new_w=np.asarray(d.new_w, np.float32),
         ell_row=np.asarray(d.ell_row), ell_col=np.asarray(d.ell_col),
         csr_pos=None if csr_pos is None else np.asarray(csr_pos))
+
+
+def fleet_from_arrays(fleet, device=None) -> GraphFleet:
+    """A reference ``GraphFleet`` (its stacked graph ``g`` with ``[F,
+    ...]`` leaves and the true edge counts ``es``) as the port's."""
+    device = resolve_device(device)
+    g = fleet.g
+    return GraphFleet(GraphStack(
+        n=int(g.n), e_pad=int(g.e_pad), es=tuple(int(e) for e in fleet.es),
+        src=_arr(g.src, np.int32, device), dst=_arr(g.dst, np.int32, device),
+        w=_arr(g.w, np.float32, device),
+        in_deg=_arr(g.in_deg, np.int32, device),
+        out_deg=_arr(g.out_deg, np.int32, device),
+        in_weight=_arr(g.in_weight, np.float32, device),
+        out_weight=_arr(g.out_weight, np.float32, device)))
+
+
+def stacked_delta_from_arrays(d, device=None) -> StackedDelta:
+    """A reference stacked delta (``stack_deltas``: ``k`` int[F], the
+    rest ``[F, k_pad]``) as the port's; weights validated on the host."""
+    device = resolve_device(device)
+    rows = [_delta_from_host(
+        int(k), device, edge_idx=np.asarray(d.edge_idx)[f],
+        new_w=np.asarray(d.new_w, np.float32)[f],
+        ell_row=np.asarray(d.ell_row)[f], ell_col=np.asarray(d.ell_col)[f],
+        csr_pos=None if getattr(d, "csr_pos", None) is None
+        else np.asarray(d.csr_pos)[f])
+        for f, k in enumerate(np.asarray(d.k).ravel())]
+
+    def st(name):
+        return torch.stack([getattr(r, name) for r in rows])
+    return StackedDelta(
+        ks=tuple(r.k for r in rows), edge_idx=st("edge_idx"),
+        new_w=st("new_w"), ell_row=st("ell_row"), ell_col=st("ell_col"),
+        csr_pos=None if rows[0].csr_pos is None else st("csr_pos"))
+
+
+_FLEET_STATE = dict(w=np.float32, in_weight=np.float32,
+                    out_weight=np.float32, sources=np.int32, D=np.float32,
+                    C=np.float32, fixed=np.bool_, rounds=np.int32,
+                    fb=np.int32, version=np.int32)
+
+
+def fleet_state_from_arrays(state, device=None) -> dict:
+    """A reference ``FleetSolver.state_dict()`` as tensors on ``device``
+    for the port's ``load_state_dict``."""
+    device = resolve_device(device)
+    return {k: _arr(state[k], dt, device) for k, dt in _FLEET_STATE.items()}
 
 
 def landmark_tables_from_arrays(d_from, d_to, device=None):

@@ -24,6 +24,13 @@ any leading batch shape, and ``apply_delta``: a weight delta
 (``core/sssp/dynamic.GraphDelta``) scattered into every layout on the
 device, topology unchanged.  ``Graph.reverse()`` builds the transpose on
 the host.
+
+``GraphStack`` (port only) holds M member graphs that share ``(n,
+e_pad)`` as ``[M, e_pad]`` edge and ``[M, n]`` vertex tensors and runs
+them as ``L = M * per`` lanes, lane l on member ``l // per``: the
+reference's stacked pytrees (``bidirectional._stack2``, the fleet's
+``_stack_trees``) without vmap.  Its gathers and scatters take each
+member's index row as an ``expand`` view across that member's lanes.
 """
 from __future__ import annotations
 
@@ -162,6 +169,139 @@ class Graph:
     def csr(self) -> "CsrGraph":
         """Src-sorted (CSR) out-edge view for the frontier backend."""
         return build_csr(self)
+
+
+@dataclasses.dataclass(frozen=True)
+class GraphStack:
+    """M member graphs sharing ``(n, e_pad)``, run as ``L = M * per`` lanes.
+
+    Lane l runs member ``l // per``: the bidirectional pair is the stack
+    ``[graph, reverse]`` at ``per = 1``, a fleet's ``solve`` its members
+    at ``per = 1`` and its ``solve_batch`` at ``per = B``.  ``es`` keeps
+    each member's true edge count; the rows past it are the inert
+    padding every ``Graph`` carries (``src = dst = n``, ``w = +inf``), so
+    members with different ``e`` stack unchanged.  ``src_ix``/``dst_ix``
+    are the int64 index rows ``[M, 1, e_pad]`` that every lane of a
+    member reads through an ``expand`` view (never an ``[L, e_pad]``
+    copy).  Lane tensors are ``[L, n]`` / ``[L, e_pad]``.
+    """
+
+    n: int
+    e_pad: int
+    es: tuple[int, ...]
+    src: torch.Tensor         # int32[M, e_pad]
+    dst: torch.Tensor         # int32[M, e_pad]
+    w: torch.Tensor           # float32[M, e_pad]
+    in_deg: torch.Tensor      # int32[M, n]
+    out_deg: torch.Tensor     # int32[M, n]
+    in_weight: torch.Tensor   # float32[M, n]
+    out_weight: torch.Tensor  # float32[M, n]
+    per: int = 1
+    src_ix: torch.Tensor | None = None   # int64[M, 1, e_pad]
+    dst_ix: torch.Tensor | None = None   # int64[M, 1, e_pad]
+
+    def __post_init__(self):
+        if self.src_ix is None:
+            object.__setattr__(self, "src_ix", self.src.long()[:, None])
+        if self.dst_ix is None:
+            object.__setattr__(self, "dst_ix", self.dst.long()[:, None])
+
+    @property
+    def size(self) -> int:
+        return len(self.es)
+
+    @property
+    def lanes(self) -> int:
+        return self.size * self.per
+
+    @property
+    def device(self) -> torch.device:
+        return self.w.device
+
+    def with_lanes(self, per: int) -> "GraphStack":
+        """The same members run as ``per`` lanes each (tensors shared)."""
+        return dataclasses.replace(self, per=int(per))
+
+    def _lane_ix(self, ix: torch.Tensor) -> torch.Tensor:
+        return ix.expand(self.size, self.per, self.e_pad)
+
+    def gather_src(self, vertex_vals: torch.Tensor, fill=INF) -> torch.Tensor:
+        """``[L, n]`` lane values at each lane's member's edge sources ->
+        ``[M, per, e_pad]``; padding edges get ``fill``."""
+        ext = torch.cat([vertex_vals, vertex_vals.new_full(
+            (vertex_vals.shape[0], 1), fill)], dim=1)
+        return ext.view(self.size, self.per, self.n + 1).gather(
+            2, self._lane_ix(self.src_ix))
+
+    def seg_min_at_dst(self, edge_vals: torch.Tensor) -> torch.Tensor:
+        """min-reduce ``[M, per, e_pad]`` edge values at their member's
+        destinations -> ``[L, n]`` (+inf where no edge lands)."""
+        out = torch.full((self.size, self.per, self.n + 1), INF,
+                         dtype=edge_vals.dtype, device=edge_vals.device)
+        out.scatter_reduce_(2, self._lane_ix(self.dst_ix), edge_vals, "amin")
+        return out[..., : self.n].reshape(self.lanes, self.n)
+
+    def member(self, i: int) -> Graph:
+        """Member ``i`` as a ``Graph`` with its true ``e`` (tensors are
+        views of the stack's rows, its int64 index copies too)."""
+        i = int(i)
+        if not 0 <= i < self.size:
+            raise IndexError(f"member {i} out of range [0, {self.size})")
+        g = Graph(n=self.n, e=self.es[i], e_pad=self.e_pad, src=self.src[i],
+                  dst=self.dst[i], w=self.w[i], in_deg=self.in_deg[i],
+                  out_deg=self.out_deg[i], in_weight=self.in_weight[i],
+                  out_weight=self.out_weight[i])
+        object.__setattr__(g, "src_l", self.src_ix[i, 0])
+        object.__setattr__(g, "dst_l", self.dst_ix[i, 0])
+        return g
+
+    def members(self) -> list[Graph]:
+        return [self.member(i) for i in range(self.size)]
+
+    def apply_deltas(self, delta) -> "GraphStack":
+        """New stack with row m of a stacked delta (``edge_idx``/``new_w``
+        ``[M, k_pad]``) scattered into member m's weights; rows outside
+        ``[0, e_pad)`` drop.  ``in_weight``/``out_weight`` are recomputed
+        as segment minima, topology tensors shared."""
+        M, E = self.size, self.e_pad
+        idx = delta.edge_idx.long()
+        base = torch.arange(M, device=idx.device)[:, None] * E
+        flat = torch.where((idx >= 0) & (idx < E), base + idx, M * E)
+        w = _scatter_rows(self.w.reshape(-1), flat.reshape(-1),
+                          delta.new_w.reshape(-1)).view(M, E)
+        return dataclasses.replace(
+            self, w=w, in_weight=self._seg_min(w, self.dst_ix[:, 0]),
+            out_weight=self._seg_min(w, self.src_ix[:, 0]))
+
+    def _seg_min(self, w: torch.Tensor, seg: torch.Tensor) -> torch.Tensor:
+        out = torch.full((self.size, self.n + 1), INF, dtype=w.dtype,
+                         device=w.device)
+        return out.scatter_reduce_(1, seg, w, "amin")[:, : self.n]
+
+
+def stack_graphs(graphs, per: int = 1) -> GraphStack:
+    """Stack ``Graph`` members that share ``(n, e_pad)`` and a device."""
+    graphs = list(graphs)
+    if not graphs:
+        raise ValueError("empty fleet")
+    for i, g in enumerate(graphs):
+        if not isinstance(g, Graph):
+            raise TypeError(f"fleet member {i} must be a Graph, got "
+                            f"{type(g)!r} (see build_fleet)")
+    shapes = {(g.n, g.e_pad) for g in graphs}
+    if len(shapes) > 1:
+        raise ValueError(
+            f"fleet members must share (n, e_pad); got {sorted(shapes)} "
+            "— build them with a common edge_pad_multiple (build_fleet "
+            "does this)")
+
+    def st(name):
+        return torch.stack([getattr(g, name) for g in graphs])
+    return GraphStack(
+        n=graphs[0].n, e_pad=graphs[0].e_pad,
+        es=tuple(int(g.e) for g in graphs), src=st("src"), dst=st("dst"),
+        w=st("w"), in_deg=st("in_deg"), out_deg=st("out_deg"),
+        in_weight=st("in_weight"), out_weight=st("out_weight"), per=per)
 
 
 def _scatter_rows(vals: torch.Tensor, idx: torch.Tensor,

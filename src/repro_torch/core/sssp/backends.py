@@ -18,9 +18,15 @@ ops; a backend is a concrete choice of them.  Every op is batch-first:
         shared compacted buffer f_idx int32[frontier_cap] (padding n).
     out_nbrs(idx) -> int32[len(idx), max_out]; in_min_at(x, tgt,
         mask) -> [B, *tgt.shape]: the incremental-maintenance primitives.
+    relax_frontier(x, f_idx, src_mask) -> float32[L, n]
+        (legacy frontier round) each lane's relax restricted to the
+        out-edges of its own buffer f_idx int32[L, cap], over its own
+        graph: one single-lane B1 launch a lane.
 
-The reference's ``relax2`` fusion hook and single-lane ``relax_frontier``
-serve the distributed backend and bidirectional.py (ROADMAP A10, A7).
+``stacked_segment_prims`` and ``lane_frontier_prims`` run over a
+``GraphStack``: lane l on member ``l // per``, every op one set of
+launches for all lanes.  The reference's ``relax2`` fusion hook serves
+the distributed backend (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -29,7 +35,7 @@ from typing import Callable
 
 import torch
 
-from repro_torch.core.graph import INF, CsrGraph, EllGraph, Graph
+from repro_torch.core.graph import INF, CsrGraph, EllGraph, Graph, GraphStack
 from repro_torch.kernels import ops, ref
 
 
@@ -47,11 +53,12 @@ class Primitives:
     relax_frontier_b: Callable | None = None
     out_nbrs: Callable | None = None
     in_min_at: Callable | None = None
+    relax_frontier: Callable | None = None
 
 
 def segment_prims(g: Graph) -> Primitives:
     """Scatter-min (``scatter_reduce_`` "amin") over the dst-sorted edge
-    list.  The reference used ``jax.ops.segment_min`` outside Pallas here,
+    list.  The reference used its library segment_min outside Pallas here,
     so this backend has no kernel of its own."""
 
     def relax(x, src_mask):
@@ -113,3 +120,50 @@ def frontier_prims(g: Graph, csr: CsrGraph, cap: int) -> Primitives:
                       walk_width=csr.max_out_deg * csr.max_in_deg,
                       relax_frontier_b=relax_frontier_b,
                       out_nbrs=out_nbrs, in_min_at=in_min_at)
+
+
+def stacked_segment_prims(s: GraphStack) -> Primitives:
+    """The segment backend over a ``GraphStack``: one gather and one
+    scatter-min for all ``L`` lanes, each lane on its member's edge
+    list.  ``masked_min_pair`` takes the members' ``out_weight`` [M, n]
+    as its ``add`` and broadcasts it across each member's lanes; the
+    sums are the same single f32 adds as a member's own solve."""
+    M, P, n = s.size, s.per, s.n
+    w = s.w[:, None]                              # [M, 1, e_pad]
+
+    def relax(x, src_mask):
+        ok = s.gather_src(src_mask, fill=False)
+        return s.seg_min_at_dst(torch.where(ok, s.gather_src(x) + w, INF))
+
+    def in_weight_nf(nf_mask):
+        ok = s.gather_src(nf_mask, fill=False)
+        return s.seg_min_at_dst(torch.where(ok, w, INF))
+
+    def masked_min_pair(x, mask, add):
+        mins = ref.masked_min_pair_ref(x.view(M, P, n), mask.view(M, P, n),
+                                       None if add is None else add[:, None])
+        return mins.view(M * P, 2)
+
+    return Primitives(relax=relax, in_weight_nf=in_weight_nf,
+                      masked_min_pair=masked_min_pair)
+
+
+def lane_frontier_prims(s: GraphStack, csrs: list[CsrGraph],
+                        cap: int) -> Primitives:
+    """The legacy round's frontier backend over a one-lane-a-member
+    stack (the bidirectional pair): step 1 relaxes each lane's own
+    buffer over its own CSR view through B1, one launch a lane; the
+    other reductions stay the dense stacked segment ones, as in the
+    reference's legacy body."""
+    if s.per != 1 or len(csrs) != s.size:
+        raise ValueError(f"one CSR view a lane: {len(csrs)} views for "
+                         f"{s.size} members x {s.per} lanes")
+    base = stacked_segment_prims(s)
+
+    def relax_frontier(x, f_idx, src_mask):
+        return torch.stack([ops.frontier_relax(x[i], csr, f_idx[i],
+                                               src_mask[i])
+                            for i, csr in enumerate(csrs)])
+
+    return dataclasses.replace(base, frontier_cap=int(cap),
+                               relax_frontier=relax_frontier)

@@ -36,8 +36,11 @@ Besides cold solves the engine runs:
     ``_round_shared`` with ``warm=True`` un-fix any fixed vertex the
     relax still improves.
 
-``_round``'s single-lane frontier branch (bidirectional queries) is
-queued in ROADMAP.md.
+  * the legacy frontier branch of ``_round`` (the bidirectional pair):
+    each lane relaxes only the out-edges of its own compacted buffer
+    ``f_idx`` [B, cap] through B1, one launch a lane, while inWeight_nf
+    and the C-propagation stay dense; the lanes may run different graphs
+    (a ``GraphStack``, whose taint seeds ``stack_taint_seeds`` computes).
 """
 from __future__ import annotations
 
@@ -46,7 +49,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.graph import INF, Graph
+from repro_torch.core.graph import INF, Graph, GraphStack
 from repro_torch.core.sssp import backends
 
 
@@ -84,6 +87,9 @@ class SSSPState:
     round: torch.Tensor      # int32[B]
     fixed_by: torch.Tensor   # int32[B, 5] cumulative per-rule fix counts
     edges: torch.Tensor | None = None       # int64[B] (frontier backend)
+    # --- legacy frontier carries (None outside _round's frontier branch) ---
+    f_idx: torch.Tensor | None = None       # int32[B, cap], padding n
+    f_cnt: torch.Tensor | None = None       # int32[B] true frontier sizes
     # --- shared-batch-frontier carries (None outside _round_shared) ---
     in_w_nf: torch.Tensor | None = None     # float32[B, n]
     c_fix: torch.Tensor | None = None       # float32[B, n]
@@ -146,13 +152,20 @@ class SyncCounter:
         self.count = 0
 
     def read(self, t: torch.Tensor) -> list:
+        return self._read(t, torch.Tensor.tolist)
+
+    def read_numpy(self, t: torch.Tensor) -> np.ndarray:
+        """As ``read``, into a numpy array (for long vectors)."""
+        return self._read(t, lambda x: x.cpu().numpy())
+
+    def _read(self, t: torch.Tensor, how):
         self.count += 1
         if not t.is_cuda:
-            return t.tolist()
+            return how(t)
         mode = torch.cuda.get_sync_debug_mode()
         torch.cuda.set_sync_debug_mode(0)
         try:
-            return t.tolist()
+            return how(t)
         finally:
             torch.cuda.set_sync_debug_mode(mode)
 
@@ -182,6 +195,26 @@ def _chunk(csum: torch.Tensor, start: int, cap: int) -> torch.Tensor:
     want = torch.arange(start + 1, start + cap + 1, dtype=torch.int32,
                         device=csum.device)
     return torch.searchsorted(csum, want, out_int32=True)
+
+
+def _compact_lanes(mask: torch.Tensor, cap: int):
+    """Per-lane compaction of bool[B, n] ``mask``: ``(f_idx int32[B, cap],
+    f_cnt int32[B])``, each lane's first ``cap`` True positions in
+    increasing order (padding ``n``) and its true count; positions past
+    ``cap`` land in a spare column and drop, as the reference's
+    ``mode="drop"`` scatter.  One prefix count over the flattened lanes,
+    each lane's made relative by the count before its row (a scan along
+    a long last axis of few rows is far slower on the card)."""
+    B, n = mask.shape
+    flat = torch.cumsum(mask.reshape(-1), 0, dtype=torch.int32).view(B, n)
+    before = torch.cat([flat.new_zeros(1), flat[:-1, -1]])
+    csum = flat - before[:, None]
+    at = torch.where(mask & (csum <= cap), csum - 1, cap).long()
+    f_idx = torch.full((B, cap + 1), n, dtype=torch.int32,
+                       device=mask.device)
+    f_idx.scatter_(1, at, torch.arange(n, dtype=torch.int32,
+                                       device=mask.device).expand(B, n))
+    return f_idx[:, :cap].contiguous(), csum[:, -1].contiguous()
 
 
 def _compact_frontier(mask: torch.Tensor, cap: int, n: int):
@@ -248,11 +281,14 @@ def _scatter_set(ext: torch.Tensor, B: int, n: int, tgts: torch.Tensor,
 # State
 # ---------------------------------------------------------------------------
 
-def _init_state(g: Graph, sources: torch.Tensor,
-                C0: torch.Tensor | None = None) -> SSSPState:
+def _init_state(g: Graph | GraphStack, sources: torch.Tensor,
+                C0: torch.Tensor | None = None,
+                prims: backends.Primitives | None = None) -> SSSPState:
     """Cold state for int64[B] ``sources``: D = +inf but 0 at the source,
     nothing fixed, C = 0 or the seeds ``max(C0, 0)`` (float32[B, n];
-    the caller vouches ``C0[b, v] <= d(source_b, v)``)."""
+    the caller vouches ``C0[b, v] <= d(source_b, v)``).  Prims with a
+    single-lane ``relax_frontier`` also seed the legacy frontier carries:
+    ``f_idx = [s, n, n, ...]``, ``f_cnt = 1``, ``edges = 0``."""
     B = sources.shape[0]
     dev = g.device
     D = torch.full((B, g.n), INF, dtype=torch.float32, device=dev)
@@ -260,11 +296,19 @@ def _init_state(g: Graph, sources: torch.Tensor,
     fixed = torch.zeros((B, g.n), dtype=torch.bool, device=dev)
     C = (torch.zeros_like(D) if C0 is None
          else torch.clamp(C0.to(torch.float32), min=0.0))
+    f_idx = f_cnt = edges = None
+    if prims is not None and prims.relax_frontier is not None:
+        f_idx = torch.full((B, prims.frontier_cap), g.n, dtype=torch.int32,
+                           device=dev)
+        f_idx[:, 0] = sources.to(torch.int32)
+        f_cnt = torch.ones(B, dtype=torch.int32, device=dev)
+        edges = torch.zeros(B, dtype=torch.int64, device=dev)
     return SSSPState(D=D, C=C, fixed=fixed,
                      explored=fixed,
                      round=torch.zeros(B, dtype=torch.int32, device=dev),
                      fixed_by=torch.zeros((B, 5), dtype=torch.int32,
-                                          device=dev))
+                                          device=dev),
+                     edges=edges, f_idx=f_idx, f_cnt=f_cnt)
 
 
 def _select(go: torch.Tensor, new: SSSPState, old: SSSPState) -> SSSPState:
@@ -347,6 +391,31 @@ def delta_taint_seeds(g_old: Graph, delta, D0: torch.Tensor):
     seeds.scatter_(1, seed_at, True)
     pure = ~(valid & (delta.new_w < w_old)).any()
     return seeds[:, :n].contiguous(), pure.expand(B)
+
+
+def stack_taint_seeds(s_old: GraphStack, delta, D0: torch.Tensor):
+    """``delta_taint_seeds`` over a ``GraphStack``: row m of the stacked
+    ``delta`` (``edge_idx``/``new_w`` [M, k_pad]) is member m's, ``D0``
+    float32[L, n] the lanes' previous distances on ``s_old``.  Returns
+    ``seeds`` bool[L, n] and ``pure_increase`` bool[L] (per member)."""
+    M, P, n = s_old.size, s_old.per, s_old.n
+    k = delta.edge_idx.shape[1]
+    valid = delta.edge_idx < s_old.e_pad                     # [M, k]
+    idx = delta.edge_idx.clamp(max=s_old.e_pad - 1).long()
+    w_old = s_old.w.gather(1, idx)
+    src = s_old.src_ix[:, 0].gather(1, idx)[:, None].expand(M, P, k)
+    dst = s_old.dst_ix[:, 0].gather(1, idx)[:, None].expand(M, P, k)
+    D0_ext = torch.cat([D0, D0.new_full((D0.shape[0], 1), INF)],
+                       dim=1).view(M, P, n + 1)
+    Ds, Dd = D0_ext.gather(2, src), D0_ext.gather(2, dst)
+    increased = (valid & (delta.new_w > w_old))[:, None]
+    tight = (Ds + w_old[:, None] <= Dd) & (Ds < INF) & (Dd < INF)
+    seed_at = torch.where(increased & tight, dst, n)
+    seeds = torch.zeros((M, P, n + 1), dtype=torch.bool, device=D0.device)
+    seeds.scatter_(2, seed_at, True)
+    pure = ~(valid & (delta.new_w < w_old)).any(dim=1)
+    return (seeds[..., :n].reshape(M * P, n),
+            pure.repeat_interleave(P))
 
 
 def delta_decrease_sources(g_old: Graph, delta) -> torch.Tensor:
@@ -440,19 +509,47 @@ def _solve_warm(g: Graph, cfg: SSSPConfig, prev_D: torch.Tensor,
 # Dense round
 # ---------------------------------------------------------------------------
 
-def _round(g: Graph, cfg: SSSPConfig, state: SSSPState,
+def _round(g: Graph | GraphStack, cfg: SSSPConfig, state: SSSPState,
            prims: backends.Primitives, warm: bool = False) -> SSSPState:
     """One bulk-synchronous dense round over ``[B, n]`` lanes — THE round
     body of the segment and ELL/pallas backends.  ``warm=True`` un-fixes
     every fixed vertex the relax improves (possible only after a weight
-    decrease) and drops its C to 0; D stays monotone, so this ends."""
+    decrease) and drops its C to 0; D stays monotone, so this ends.
+
+    With a single-lane ``prims.relax_frontier`` and the state's frontier
+    carries (``_init_state(..., prims)``), step 1 relaxes only each lane's
+    buffer ``f_idx`` (the reference's legacy frontier branch): repeated
+    offers are value-identical and min-folded, so this is bitwise the
+    dense relax.  A lane whose count outgrew ``cap < n`` takes the dense
+    relax that round, as the reference's ``lax.cond`` does lane by lane
+    under vmap.  ``edges`` meters the out-degrees of the live buffer
+    slots (``e_pad`` on a dense round), and the end of the round
+    compacts the next buffer from the vertices whose offers are new."""
     D, C, fixed = state.D, state.C, state.fixed
+    use_frontier = (prims.relax_frontier is not None
+                    and state.f_idx is not None)
 
     # --- Step 1: relax FIRST, from previously-fixed (label-setting) or
     # all discovered (label-correcting) sources.
     relax_src = (D < INF) if cfg.label_correcting else fixed
     need_inw = ("in" in cfg.rules) or ("pred" in cfg.rules)
-    D_relax = prims.relax(D, relax_src)
+    edges = state.edges
+    if use_frontier:
+        B, n = D.shape
+        f_idx = state.f_idx
+        D_relax = prims.relax_frontier(D, f_idx, relax_src)
+        u = f_idx.clamp(max=n - 1).long()
+        live = (f_idx < n) & relax_src.gather(1, u)
+        sparse = torch.where(live, g.out_deg.expand(B, n).gather(1, u),
+                             0).sum(dim=1, dtype=torch.int64)
+        if prims.frontier_cap < n:
+            overflow = state.f_cnt > prims.frontier_cap
+            D_relax = torch.where(overflow[:, None],
+                                  prims.relax(D, relax_src), D_relax)
+            sparse = torch.where(overflow, g.e_pad, sparse)
+        edges = edges + sparse
+    else:
+        D_relax = prims.relax(D, relax_src)
     in_w_nf = prims.in_weight_nf(~fixed) if need_inw else None
     if warm:
         improved = fixed & (D_relax < D)
@@ -511,9 +608,20 @@ def _round(g: Graph, cfg: SSSPConfig, state: SSSPState,
         rule_counts.append(zero)
         fixed2 = fixed1
     C = torch.where(fixed2, D, C)
+
+    f_idx, f_cnt = state.f_idx, state.f_cnt
+    if use_frontier:
+        # new offers come from D changes (label-correcting) or from fix
+        # events, a warm unfix-refix included (label-setting)
+        if cfg.label_correcting:
+            fresh = D != state.D
+        else:
+            fresh = fixed2 & (~state.fixed | (D != state.D))
+        f_idx, f_cnt = _compact_lanes(fresh, prims.frontier_cap)
     return SSSPState(
         D=D, C=C, fixed=fixed2, explored=explored, round=state.round + 1,
-        fixed_by=state.fixed_by + torch.stack(rule_counts, dim=1))
+        fixed_by=state.fixed_by + torch.stack(rule_counts, dim=1),
+        edges=edges, f_idx=f_idx, f_cnt=f_cnt)
 
 
 def _solve(g: Graph, cfg: SSSPConfig, sources: torch.Tensor,

@@ -48,6 +48,7 @@ SIGNATURES = {
 SOURCES = tuple(sorted({src for src, _ in SIGNATURES.values()}))
 
 LAUNCHES: dict[str, int] = {
+    "frontier_relax": 0,
     "frontier_scatter_min": 0,
     "frontier_scatter_min_batch": 0,
     "frontier_relax_csr": 0,

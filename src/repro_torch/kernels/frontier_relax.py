@@ -1,8 +1,10 @@
 """Frontier scatter-min wrappers (port of ``repro/kernels/frontier_relax.py``).
 
 ``frontier_relax_csr`` is the step-1 relax of the shared batch frontier
-with its CSR gather fused in (B2; B1 at B = 1): what ``ops.frontier_relax_b``
-and ``ops.frontier_relax`` run.  ``frontier_scatter_min_batch`` (B2) and
+with its CSR gather fused in (B2): what ``ops.frontier_relax_b`` runs.
+``frontier_relax`` is the single-lane relax of the legacy round (B1), the
+same fused entry at B = 1 counted under its own key: what
+``ops.frontier_relax`` runs.  ``frontier_scatter_min_batch`` (B2) and
 ``frontier_scatter_min`` (B1) are the counterparts at the TPU kernels'
 own ``tgt``/``cand`` signature and share the fused entry's kernel body.
 A CPU tensor goes to the plain versions in ``ref.py``, a CUDA tensor to
@@ -91,19 +93,10 @@ def _csr_fault(args: tuple, dev: torch.device) -> None:
             raise ValueError(f"{name} on {t.device}, x on {dev}")
 
 
-def frontier_relax_csr(x: torch.Tensor, src_mask: torch.Tensor,
-                       f_idx: torch.Tensor, indptr: torch.Tensor,
-                       dst: torch.Tensor, w: torch.Tensor,
-                       max_deg: int) -> torch.Tensor:
-    """Shared-frontier relax, CSR gather fused -> float32[B, n] (B2).
-
-    ``x`` float32[B, n] and ``src_mask`` bool[B, n] per lane, ``f_idx``
-    int32[cap] union frontier (padding ``n``), ``indptr`` int32[n + 1]
-    and ``dst``/``w`` [e_pad] the CSR view, ``max_deg`` its largest
-    out-degree.  ``out[b, t]`` is the min of ``x[b, u] + w`` over the
-    out-edges (u, t, w) of buffered u with ``src_mask[b, u]``, +inf where
-    none; every such sum must be ``>= +0.0`` or +inf.
-    """
+def _fused(x: torch.Tensor, src_mask: torch.Tensor, f_idx: torch.Tensor,
+           indptr: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
+           max_deg: int, key: str) -> torch.Tensor:
+    """The fused CSR relax over ``[B, n]`` lanes, counted under ``key``."""
     dev = x.device
     B, n = x.shape if x.dim() == 2 else (0, -1)
     # one pass over the six tensors; _csr_fault names the one at fault
@@ -133,6 +126,39 @@ def frontier_relax_csr(x: torch.Tensor, src_mask: torch.Tensor,
         f_idx.data_ptr(), indptr.data_ptr(), dst.data_ptr(), w.data_ptr(),
         x.data_ptr(), src_mask.data_ptr(), out.data_ptr(), B,
         f_idx.shape[0], max_deg, n, dev.index, _build.raw_stream(dev))
-    _build.check(rc, "frontier_relax_csr")
-    _build.count_launch("frontier_relax_csr")
+    _build.check(rc, key)
+    _build.count_launch(key)
     return out
+
+
+def frontier_relax_csr(x: torch.Tensor, src_mask: torch.Tensor,
+                       f_idx: torch.Tensor, indptr: torch.Tensor,
+                       dst: torch.Tensor, w: torch.Tensor,
+                       max_deg: int) -> torch.Tensor:
+    """Shared-frontier relax, CSR gather fused -> float32[B, n] (B2).
+
+    ``x`` float32[B, n] and ``src_mask`` bool[B, n] per lane, ``f_idx``
+    int32[cap] union frontier (padding ``n``), ``indptr`` int32[n + 1]
+    and ``dst``/``w`` [e_pad] the CSR view, ``max_deg`` its largest
+    out-degree.  ``out[b, t]`` is the min of ``x[b, u] + w`` over the
+    out-edges (u, t, w) of buffered u with ``src_mask[b, u]``, +inf where
+    none; every such sum must be ``>= +0.0`` or +inf.
+    """
+    return _fused(x, src_mask, f_idx, indptr, dst, w, max_deg,
+                  "frontier_relax_csr")
+
+
+def frontier_relax(x: torch.Tensor, src_mask: torch.Tensor,
+                   f_idx: torch.Tensor, indptr: torch.Tensor,
+                   dst: torch.Tensor, w: torch.Tensor,
+                   max_deg: int) -> torch.Tensor:
+    """Single-lane frontier relax, CSR gather fused -> float32[n] (B1).
+
+    ``x`` float32[n] and ``src_mask`` bool[n], the rest as
+    ``frontier_relax_csr``; the same kernel at B = 1.
+    """
+    if x.dim() != 1 or src_mask.dim() != 1:
+        raise ValueError(f"x {tuple(x.shape)} and src_mask "
+                         f"{tuple(src_mask.shape)} must be 1-d")
+    return _fused(x[None], src_mask[None], f_idx, indptr, dst, w, max_deg,
+                  "frontier_relax")[0]

@@ -41,13 +41,14 @@ def masked_min_pair(x: torch.Tensor, mask: torch.Tensor,
 def frontier_relax(x: torch.Tensor, csr: CsrGraph, f_idx: torch.Tensor,
                    src_mask: torch.Tensor) -> torch.Tensor:
     """Single-lane sparse-frontier relax -> float32[n] (B1): the fused
-    entry at B = 1.
+    entry at B = 1, launch key ``frontier_relax``.
 
     ``x`` float32[n], ``f_idx`` int32[cap] (padding ``n``), ``src_mask``
-    bool[n].  Used by no engine path of this slice (the single-lane
-    frontier round is ROADMAP A7).
+    bool[n].  The legacy round's frontier branch (bidirectional lanes)
+    calls it once a lane.
     """
-    return frontier_relax_b(x[None], csr, f_idx, src_mask[None])[0]
+    return _fr.frontier_relax(x, src_mask, f_idx, csr.indptr, csr.dst,
+                              csr.w, csr.max_out_deg)
 
 
 def frontier_relax_b(x: torch.Tensor, csr: CsrGraph, f_idx: torch.Tensor,

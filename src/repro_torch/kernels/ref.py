@@ -113,7 +113,7 @@ def masked_min_ref(x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 def masked_min_pair_ref(x: torch.Tensor, mask: torch.Tensor,
                         add: torch.Tensor | None) -> torch.Tensor:
-    """Both minima of a round over one mask -> float32[B, 2]: column 0
+    """Both minima of a round over one mask -> float32[..., 2]: column 0
     ``masked_min_ref(x, mask)``, column 1 ``masked_min_ref(x + add,
     mask)`` (+inf if ``add`` is None).  A min is exact and ``x + add``
     one f32 add, so the kernel, which adds in its loop, is bitwise this.
@@ -123,7 +123,7 @@ def masked_min_pair_ref(x: torch.Tensor, mask: torch.Tensor,
     lo = masked_min_ref(x, mask)
     hi = (torch.full_like(lo, INF) if add is None
           else masked_min_ref(x + add, mask))
-    return torch.stack([lo, hi], dim=1)
+    return torch.stack([lo, hi], dim=-1)
 
 
 def cin_layer_ref(x_k: torch.Tensor, x_0: torch.Tensor,

@@ -24,7 +24,7 @@ def init_mlp(dims: list[int], generator: torch.Generator,
              device: torch.device) -> list:
     """float32 normal weights scaled by ``d_in ** -0.5``, zero biases.
     Draws from ``generator``, which lives on ``device``; the numbers differ
-    from the reference's ``jax.random`` ones."""
+    from the reference's random draws."""
     return [
         (torch.randn((dims[i], dims[i + 1]), generator=generator,
                      device=device) * (dims[i] ** -0.5),

@@ -27,18 +27,41 @@ Targeted queries with landmark (ALT) seeds:
     res = solver.solve(s, target=t, C0=index.seed(s))   # early exit
     res.dist[t]; res.path_to(t)                  # exact on the partial
 
-The bidirectional, fleet and distributed subsystems of ``repro.sssp`` are
-queued in ROADMAP.md.
+Bidirectional point-to-point queries (forward from s, backward from t on
+the transpose, two lanes of one run):
+
+    bidi = sssp.BidirectionalSolver(graph)       # "auto": frontier on
+    r = bidi.solve(s, t)                         #   road-like graphs
+    r.distance; r.path(); r.meeting              # exact, stitched
+    bidi = sssp.BidirectionalSolver(graph, landmarks=index)   # ALT seeds
+    fresh = bidi.update(delta, warm=[(s, t, r.D, r.fixed)])    # pair cache
+
+Graph fleets (F same-shape graphs, one run for all members):
+
+    fleet = sssp.build_fleet([(n, src, dst, w), ...])   # common e_pad
+    fs = sssp.FleetSolver(fleet)                 # "segment" | "frontier"
+    res = fs.solve(sources)                      # one source a member
+    res.result(2).path_to(7)
+    fs.solve_batch(sources_FxB)                  # [F, B] lanes
+    fs.update(sssp.stack_deltas([d0, d1, ...]))  # per-member deltas, warm
+    fs.resolve()
+
+The distributed subsystem of ``repro.sssp`` is queued in ROADMAP.md.
 """
 from repro_torch.core.graph import (  # noqa: F401
     CsrGraph, EllGraph, Graph, HostGraph, build_csr, build_ell, build_graph)
 from repro_torch.core.sssp.backends import Primitives  # noqa: F401
+from repro_torch.core.sssp.bidirectional import (  # noqa: F401
+    BidiResult, BidirectionalSolver)
 from repro_torch.core.sssp.dynamic import (  # noqa: F401
     DynamicSolver, GraphDelta, make_delta, make_delta_from_endpoints,
     random_delta)
 from repro_torch.core.sssp.engine import (  # noqa: F401
     SP1_RULES, SP2_RULES, SP3_CONFIG, SP3_RULES, SP4_CONFIG, SSSPConfig,
     SSSPResult)
+from repro_torch.core.sssp.fleet import (  # noqa: F401
+    FleetBatchResult, FleetResult, FleetSolver, GraphFleet, build_fleet,
+    stack_deltas)
 from repro_torch.core.sssp.landmarks import (  # noqa: F401
     LandmarkIndex, ReselectPolicy, seed_lower_bounds, select_landmarks)
 from repro_torch.core.sssp.parents import (  # noqa: F401
