@@ -51,12 +51,24 @@ Phases, each failing the run (non-zero exit) if it fails:
     rounds + 2 whatever F; a frontier fleet of 2 members; a
     ``CongestionReplay`` of 8 grids of side 256 with a dropout and a
     straggler, bitwise a fault-free replay;
+    ``[serve]``: ``SSSPService`` on gnp 2^20 through "pallas" (8
+    landmarks, the planner, bidirectional pairs, reselect 0.5), 3 waves
+    of 96 scalar and 8 full-vector queries around two 1,024-edge
+    ``apply_delta``s, per wave ms, queries/s, routes and host reads;
+    every answer bitwise a cold segment solve of its graph version
+    (pair-cache answers: real paths folding to their distance, within
+    rtol 1e-4) and within rtol 1e-4 of scipy (in 6 worker processes);
+    ``[launch]``: ``serve_sssp.main`` on grid n = 2^14 with ``--verify``,
+    landmarks and a delta (B2 launched), then ``--bidirectional`` (B1);
+    ``[baselines]``: Bellman-Ford and Δ-stepping (0.25, 1.0) from the
+    main path's first source on both 2^20 graphs, bitwise its SP4 dist;
     ``[parity]``: the card bitwise against the port's own CPU run on
     2^14-vertex graphs of the seven generator families (cold batch,
     warm update with its stats, seeded targeted batch; bidirectional
-    pairs and a 3-member fleet, cold and updated, on both routes), the
-    card's runs under torch's sync debug mode, the CPU's in 3 worker
-    processes beside them;
+    pairs and a 3-member fleet, cold and updated, on both routes), a
+    planned service on the grid (frontier) and gnp (pallas), two waves
+    around a delta, and the baselines on gnp, the card's runs under
+    torch's sync debug mode, the CPU's in 3 worker processes beside them;
  6. xDeepFM scoring at the paper's FULL config (18.9 M table rows)
     through ``repro_torch.models.xdeepfm.XDeepFM``: the ``serve_p99``
     (B = 512), ``serve_bulk`` (B = 262,144) and ``retrieval_cand`` (1
@@ -78,6 +90,8 @@ the repository, the script exits non-zero before printing either.
 from __future__ import annotations
 
 import argparse
+import collections
+import copy
 import json
 import statistics
 import subprocess
@@ -118,6 +132,18 @@ ATTN_TOL = {"float32": dict(rtol=2e-3, atol=2e-3),
 
 def log(*a):
     print(*a, flush=True)
+
+
+def graph_arrays(pt, name: str):
+    """The host arrays ``(n, src, dst, w)`` of the main path's graphs,
+    generated once a run (kept in ``pt``): "grid" (side 1024) and "gnp"
+    (2^20, average degree 8), weights from seed 0."""
+    arrays = pt.setdefault("arrays", {})
+    if name not in arrays:
+        gen = pt["generators"]
+        arrays[name] = (gen.grid(GRID_SIDE, seed=0) if name == "grid"
+                        else gen.gnp(GNP_N, avg_deg=8.0, seed=0))
+    return arrays[name]
 
 
 def fail(msg: str) -> None:
@@ -255,7 +281,7 @@ def kernel_phase(torch, pt):
         frontier_relax_csr, frontier_scatter_min, frontier_scatter_min_batch)
     from repro_torch.kernels.relax import relax_ell, xm_stride
     from repro_torch.kernels.segment_min import masked_min, masked_min_pair
-    gen, sssp = pt["generators"], pt["sssp"]
+    sssp = pt["sssp"]
     dev = torch.device(DEVICE)
     rec = {}
     inf = float("inf")
@@ -285,7 +311,7 @@ def kernel_phase(torch, pt):
                device_ops=o_ops)
 
     # --- B2 / B1 at the grid-1024 frontier shapes ----------------------
-    n, src, dst, w = gen.grid(GRID_SIDE, seed=0)
+    n, src, dst, w = graph_arrays(pt, "grid")
     g = sssp.build_graph(n, src, dst, w, device=dev)
     csr = g.csr()
     cap = FRONTIER_CAP
@@ -563,7 +589,7 @@ def kernel_phase(torch, pt):
                    device_ops=k_ops)
 
     # --- B3 / B4 at the gnp 2^20 ELL shapes ----------------------------
-    n, src, dst, w = gen.gnp(GNP_N, avg_deg=8.0, seed=0)
+    n, src, dst, w = graph_arrays(pt, "gnp")
     ell = sssp.build_ell(n, src, dst, w, device=dev)
     out_w = sssp.build_graph(n, src, dst, w, device=dev).out_weight
     log(f"[kernels] gnp n={n} e={len(src)} ELL n_pad={ell.n_pad} "
@@ -857,13 +883,13 @@ def against_scipy(torch, res_dists, n, src, dst, w, sources, what):
 
 
 def main_path(torch, pt):
-    gen, sssp = pt["generators"], pt["sssp"]
+    sssp = pt["sssp"]
     dev = torch.device(DEVICE)
     rng = np.random.default_rng(2024)
     runs = {}
 
     # --- grid side 1024: auto -> frontier ------------------------------
-    n, src, dst, w = gen.grid(GRID_SIDE, seed=0)
+    n, src, dst, w = graph_arrays(pt, "grid")
     g = sssp.build_graph(n, src, dst, w, device=dev)
     batch = [int(s) for s in rng.choice(n, 8, replace=False)]
     s0 = batch[0]
@@ -905,7 +931,7 @@ def main_path(torch, pt):
     del solver, other, g
 
     # --- gnp 2^20: auto -> segment, and pallas ------------------------
-    n, src, dst, w = gen.gnp(GNP_N, avg_deg=8.0, seed=0)
+    n, src, dst, w = graph_arrays(pt, "gnp")
     g = sssp.build_graph(n, src, dst, w, device=dev)
     batch = [int(s) for s in rng.choice(n, 8, replace=False)]
     s0 = batch[0]
@@ -1071,11 +1097,12 @@ def cpu_parity_phase(torch, pt):
     """The card's solves equal the port's CPU solves (plain versions)
     bitwise on 2^14-vertex graphs of every family (``parity_runs``: warm
     updates and seeded targeted batches on two routes, bidirectional
-    pairs and 3-member fleets on two routes each).  The card's runs go
-    under torch's sync debug mode, which names every host sync the
-    engine's own count misses.  The CPU sides run in 3 worker processes
-    while the card runs its side (the seeds, from the card's 4-landmark
-    indexes, are made for every family first)."""
+    pairs and 3-member fleets on two routes each), then the service and
+    the baselines (``serve_parity_runs``).  The card's runs go under
+    torch's sync debug mode, which names every host sync the engine's own
+    count misses.  The CPU sides run in 3 worker processes while the card
+    runs its side (the seeds, from the card's 4-landmark indexes, are
+    made for every family first)."""
     import concurrent.futures
     import multiprocessing
     gen, sssp = pt["generators"], pt["sssp"]
@@ -1091,6 +1118,7 @@ def cpu_parity_phase(torch, pt):
             [0, nn // 2]).cpu().numpy()
     with concurrent.futures.ProcessPoolExecutor(
             3, mp_context=multiprocessing.get_context("spawn")) as pool:
+        serve_job = pool.submit(serve_parity_cpu, n)
         jobs = {f: pool.submit(parity_cpu, f, n, c0)
                 for f, c0 in seeds.items()}
         done = [(f, parity_runs(torch, sssp, gen, f, n, DEVICE, c0, card))
@@ -1100,6 +1128,10 @@ def cpu_parity_phase(torch, pt):
             for key, (rows, launches, hidden) in on_card.items():
                 parity_check(family, key, rows, on_cpu[key][0], launches,
                              hidden)
+        on_card = serve_parity_runs(torch, sssp, gen, n, DEVICE, card)
+        on_cpu = serve_job.result()
+        for key, (rows, launches, hidden) in on_card.items():
+            serve_parity_check(key, rows, on_cpu[key][0], launches, hidden)
 
 
 def parity_check(family, key, a, b, launches, hidden) -> None:
@@ -1174,12 +1206,12 @@ def dynamic_phase(torch, pt):
     must launch the fused frontier relax, a pallas update ``relax_ell``
     and one ``masked_min_pair`` a warm round.  Returns the launch counts
     of every counted run."""
-    gen, sssp = pt["generators"], pt["sssp"]
+    sssp = pt["sssp"]
     dev = torch.device(DEVICE)
     runs = []
     keep = {}
-    routes = (("grid", gen.grid(GRID_SIDE, seed=0), "auto", "frontier"),
-              ("gnp", gen.gnp(GNP_N, avg_deg=8.0, seed=0), "auto",
+    routes = (("grid", graph_arrays(pt, "grid"), "auto", "frontier"),
+              ("gnp", graph_arrays(pt, "gnp"), "auto",
                "segment"),
               ("gnp", None, "pallas", "pallas"))
     g = None
@@ -1273,13 +1305,13 @@ def p2p_phase(torch, pt, main_runs):
     each pair's rounds untargeted, targeted and seeded (on the first
     route).  The grid's untargeted batch is the main path's frontier
     ``solve_batch`` of the same 8 sources (one 40 s solve, not two)."""
-    gen, sssp = pt["generators"], pt["sssp"]
+    sssp = pt["sssp"]
     dev = torch.device(DEVICE)
     runs = []
     keep = {}
-    plan = (("gnp", gen.gnp(GNP_N, avg_deg=8.0, seed=0), "segment", 64,
+    plan = (("gnp", graph_arrays(pt, "gnp"), "segment", 64,
              ("auto", "pallas")),
-            ("grid", gen.grid(GRID_SIDE, seed=0), "pallas", 8, ("auto",)))
+            ("grid", graph_arrays(pt, "grid"), "pallas", 8, ("auto",)))
     for name, (n, src, dst, w), index_be, pairs, routes in plan:
         g = sssp.build_graph(n, src, dst, w, device=dev)
         rng = np.random.default_rng(2024)
@@ -1703,6 +1735,466 @@ def fleet_phase(torch, pt):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# serving, the launcher and the baselines
+# ---------------------------------------------------------------------------
+
+SERVE_HOT = 32                # the launcher's pool of popular sources
+SERVE_QUERIES = 96            # scalar-target queries a [serve] wave
+SERVE_FULL = 8                # full-vector queries a [serve] wave
+SERVE_WAVES = 3               # apply_delta between waves (seeds 11, 12)
+SCIPY_WORKERS = 6             # [serve]'s scipy Dijkstra runs beside it
+LAUNCH_N = 1 << 14            # the launcher's grid runs (--verify: Python)
+# the modules a solve or a served wave runs in: a host sync there that no
+# SyncCounter counts is a fault ([parity] fails on one)
+ENGINE_FILES = ("engine.py", "solver.py", "backends.py", "sssp_service.py",
+                "planner.py", "bellman_ford.py", "delta_stepping.py",
+                "ops.py", "relax.py", "segment_min.py", "frontier_relax.py")
+
+
+def observed(torch, fn):
+    """``fn()`` once on the card under torch's sync debug mode, on the host
+    clock ending in a synchronize, with every launch count set to 0 just
+    before and read just after and every ``SyncCounter`` read (the
+    engine's and the service's) tallied: (its result, ms, the launch
+    counts, the counted reads, the sites of the syncs no counter saw)."""
+    from repro_torch.core.sssp import engine
+    from repro_torch.kernels import _build
+    orig = engine.SyncCounter._read
+    reads = [0]
+
+    def tally(self, t, how):
+        reads[0] += 1
+        return orig(self, t, how)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    engine.SyncCounter._read = tally
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                out = fn()
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        engine.SyncCounter._read = orig
+    hidden = [f"{Path(c.filename).name}:{c.lineno}" for c in caught
+              if "synchroniz" in str(c.message)]
+    return out, ms, _build.launch_counts(), reads[0], hidden
+
+
+def sites(hidden) -> dict:
+    """Uncounted sync sites with their counts."""
+    return dict(collections.Counter(hidden))
+
+
+_SCIPY: dict = {}    # a [serve] scipy worker's graph, set once a process
+
+
+def _scipy_init(n, src, dst):
+    _SCIPY["graph"] = (n, src, dst)
+
+
+def _scipy_pick(w, sources, targets, full):
+    """In a worker: scipy's float64 Dijkstra from ``sources`` with weights
+    ``w``; per source its distances at ``targets[i]`` and, for sources in
+    ``full``, the whole row."""
+    from scipy.sparse import csr_matrix
+    from scipy.sparse.csgraph import dijkstra
+    n, src, dst = _SCIPY["graph"]
+    m = csr_matrix((np.asarray(w, np.float64), (src, dst)), shape=(n, n))
+    rows = dijkstra(m, directed=True, indices=list(sources))
+    return [(s, rows[i][np.asarray(targets[i], np.int64)],
+             rows[i] if s in full else None) for i, s in enumerate(sources)]
+
+
+def near(got, want) -> bool:
+    """f32 answers against float64 ones: unreachable alike, else within
+    rtol 1e-4 (atol 1e-5), the tolerance of every scipy check here."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    fin = np.isfinite(want)
+    return bool(np.array_equal(np.isinf(got), np.isinf(want))
+                and np.allclose(got[fin], want[fin], rtol=1e-4, atol=1e-5))
+
+
+def serve_phase(torch, pt):
+    """The SSSP query service at n = 2^20 through
+    ``SSSPService(gnp, backend="pallas", batch=8, landmarks=8,
+    planner=True, bidirectional=True, reselect=0.5)``: 3 waves of 96
+    scalar-target queries (a pool of 32 hot sources, uniform targets,
+    rng seed 0, as the launcher draws them) and 8 full-vector queries,
+    with ``apply_delta`` of ``[dynamic]``'s delta (1,024 random edges x
+    uniform[0.5, 2.0], seeds 11 and 12) between waves.  Per wave: ms and
+    queries/s, routes, cache hits, batches, targeted and bidirectional
+    solves, B3/B4 launches and host reads (counted, the service's own,
+    and uncounted under sync debug mode).  Every full vector and every
+    scalar answer not from the pair cache is bitwise ``dist[t]`` of a cold
+    segment ``solve_batch`` of the current graph version; pair-cache
+    (bidirectional) answers are paths of real edges folding to the
+    distance within rtol 1e-4 of it; every answer is within rtol 1e-4 of
+    scipy's float64 Dijkstra (run in worker processes beside the card).
+    Returns the launch counts of every run."""
+    import concurrent.futures
+    import multiprocessing
+    from repro_torch.runtime.sssp_service import Query, SSSPService
+    sssp = pt["sssp"]
+    n, src, dst, w = graph_arrays(pt, "gnp")
+    g = sssp.build_graph(n, src, dst, w, device=DEVICE)
+    e = g.e
+    hsrc = g.src[:e].cpu().numpy()
+    hdst = g.dst[:e].cpu().numpy()
+    key = hsrc.astype(np.int64) * n + hdst
+    order = np.argsort(key, kind="stable")   # edge_table's, any weights
+    key = key[order]
+    runs = []
+    svc, build_ms, lc = timed_run(torch, lambda: SSSPService(
+        g, backend="pallas", batch=8, landmarks=8, planner=True,
+        bidirectional=True, reselect=0.5, device=DEVICE))
+    runs.append(lc)
+    log(f"  SSSPService(gnp n={n} e={e}, pallas, batch 8, 8 landmarks "
+        f"on {svc.landmarks._fwd.backend}, planner, bidirectional on "
+        f"{svc._bidi.backend}, reselect 0.5) built in {build_ms:.1f} ms, "
+        f"launches {nonzero(lc)}")
+    check(svc.solver.backend == "pallas" and svc._bidi.backend == "segment",
+          f"[serve] routes {svc.solver.backend} / {svc._bidi.backend}")
+    rng = np.random.default_rng(0)
+    hot = rng.choice(n, size=SERVE_HOT, replace=False)
+    pool = concurrent.futures.ProcessPoolExecutor(
+        SCIPY_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_scipy_init, initargs=(n, hsrc, hdst))
+    pending = []
+    totals = dict(ms=0.0, queries=0)
+    try:
+        for wave in range(SERVE_WAVES):
+            qs = [Query(int(rng.choice(hot)), int(rng.integers(0, n)))
+                  for _ in range(SERVE_QUERIES)]
+            qs += [Query(int(rng.choice(hot))) for _ in range(SERVE_FULL)]
+            before = copy.deepcopy(svc.stats)
+            reads0 = svc.host_reads
+            _, ms, lc, reads, hidden = observed(torch, lambda: svc.serve(qs))
+            runs.append(lc)
+            st = svc.stats
+            routes = {k: v - before["planner_routes"][k]
+                      for k, v in st["planner_routes"].items()}
+            diff = {k: st[k] - before[k] for k in (
+                "cache_hits", "batches", "p2p_solves", "bidi_solves",
+                "sources_solved")}
+            totals["ms"] += ms
+            totals["queries"] += len(qs)
+            log(f"  wave {wave} (graph v{svc.version}): {len(qs)} queries in "
+                f"{ms:.1f} ms ({len(qs) / ms * 1e3:.1f} queries/s); routes "
+                f"{routes}; {diff}; B3 {lc['relax_ell']}, B4 "
+                f"{lc['masked_min_pair']} launches; host reads {reads} "
+                f"counted ({svc.host_reads - reads0} the service's own), "
+                f"{len(hidden)} uncounted {sites(hidden)}; reselects "
+                f"{st['reselects']}, seed tightness "
+                f"{st['seed_tightness_mean']}")
+            check(all(q.done for q in qs), f"[serve] wave {wave}: a query "
+                                           "was not answered")
+            check(diff["batches"] == 0 or (lc["relax_ell"] > 0
+                                           and lc["masked_min_pair"] > 0),
+                  f"[serve] wave {wave}: {diff['batches']} pallas solves "
+                  "launched no B3 or B4")
+            # a cold segment solve of this graph version, every source
+            cur = svc.solver.graph
+            cold = sssp.Solver(cur, backend="segment", device=DEVICE)
+            srcs = sorted({q.source for q in qs})
+            rows = {}
+            for at in range(0, len(srcs), 8):
+                b = cold.solve_batch(srcs[at: at + 8])
+                rows.update({s: b.dist[i] for i, s in
+                             enumerate(srcs[at: at + 8])})
+            scal = [q for q in qs if q.target is not None]
+            want = torch.stack([rows[q.source][q.target] for q in scal]
+                               ).cpu().numpy()
+            w_now = cur.w[:e].cpu().numpy()
+            table = (n, key, w_now[order])
+            bitwise = pair_ans = pair_bitwise = 0
+            for q, wt in zip(scal, want):
+                same_bits = np.float32(q.distance).tobytes() == wt.tobytes()
+                entry = svc._pairs.get((q.source, q.target))
+                from_pair = (entry is not None and entry[0] == svc.version
+                             and entry[1] == q.distance)
+                if from_pair:
+                    pair_ans += 1
+                    pair_bitwise += int(same_bits)
+                    if np.isfinite(wt):
+                        fold = edge_fold(table, q.path)
+                        check(q.path[0] == q.source
+                              and q.path[-1] == q.target and fold is not None
+                              and fold.tobytes()
+                              == np.float32(q.distance).tobytes()
+                              and abs(q.distance - float(wt))
+                              <= 1e-4 * abs(float(wt)),
+                              f"[serve] wave {wave}: the bidirectional "
+                              f"answer ({q.source}, {q.target}) "
+                              f"{q.distance!r} against dist[t] {wt!r}")
+                    else:
+                        check(not np.isfinite(q.distance) and q.path is None,
+                              f"[serve] ({q.source}, {q.target}) reachable")
+                else:
+                    check(same_bits, f"[serve] wave {wave}: the answer "
+                          f"({q.source}, {q.target}) {q.distance!r} is not "
+                          f"dist[t] {wt!r} of a cold segment solve")
+                    bitwise += 1
+            for q in qs:
+                if q.target is None:
+                    check(np.array_equal(q.dist,
+                                         rows[q.source].cpu().numpy()),
+                          f"[serve] wave {wave}: the full vector of "
+                          f"{q.source} differs from a cold segment solve")
+            log(f"    answers: {bitwise} bitwise dist[t] of a cold segment "
+                f"solve (targeted, full, cache); {pair_ans} from the "
+                f"bidirectional pair cache, {pair_bitwise} of them bitwise "
+                f"dist[t], every one a path of real edges folding to its "
+                f"distance, within rtol 1e-4; {SERVE_FULL} full vectors "
+                "bitwise")
+            by_src: dict = {}
+            for q in scal:
+                by_src.setdefault(q.source, []).append(q.target)
+            full = {q.source for q in qs if q.target is None}
+            srcs = sorted(set(by_src) | full)
+            chunks = [srcs[i::SCIPY_WORKERS] for i in range(SCIPY_WORKERS)]
+            for c in chunks:
+                if c:
+                    pending.append((wave, list(qs), pool.submit(
+                        _scipy_pick, w_now, c,
+                        [by_src.get(s, []) for s in c], full)))
+            del rows, cold, want
+            if wave + 1 < SERVE_WAVES:
+                delta = sssp.random_delta(svc.solver.graph, 1024,
+                                          seed=11 + wave)
+                pw0 = svc.stats["pair_warm_refreshed"]
+                stats, ms, lc, reads, hidden = observed(
+                    torch, lambda: svc.apply_delta(delta))
+                runs.append(lc)
+                log(f"  apply_delta v{svc.version} (1024 edges, seed "
+                    f"{11 + wave}): {ms:.1f} ms; warm_refreshed "
+                    f"{stats['warm_refreshed']} (cold "
+                    f"{stats['cold_refreshed']}), pair_warm_refreshed "
+                    f"{svc.stats['pair_warm_refreshed'] - pw0}; host reads "
+                    f"{reads} counted, {len(hidden)} uncounted (host-built "
+                    f"remapped deltas, the refold's weights) "
+                    f"{sites(hidden)}; launches {nonzero(lc)}")
+        worst = 0.0
+        for wave, qs, job in pending:
+            got = {q.source: [] for q in qs}
+            for q in qs:
+                if q.target is not None:
+                    got[q.source].append(q.distance)
+            for s, d_t, row in job.result():
+                check(near(got[s], d_t), f"[serve] wave {wave}: answers "
+                      f"from {s} are not within rtol 1e-4 of scipy")
+                fin = np.isfinite(d_t) & (d_t > 0)
+                if fin.any():
+                    worst = max(worst, float(np.max(np.abs(
+                        np.asarray(got[s])[fin] - d_t[fin]) / d_t[fin])))
+                if row is not None:
+                    for q in qs:
+                        if q.source == s and q.target is None:
+                            check(near(q.dist, row), f"[serve] wave {wave}:"
+                                  f" the full vector of {s} is not within "
+                                  "rtol 1e-4 of scipy")
+    finally:
+        pool.shutdown(cancel_futures=True)
+    st = svc.stats
+    log(f"  [serve] {totals['queries']} queries in {totals['ms']:.1f} ms of "
+        f"waves ({totals['queries'] / totals['ms'] * 1e3:.1f} queries/s); "
+        f"solve_seconds {st['solve_seconds']:.3f}, delta_seconds "
+        f"{st['delta_seconds']:.3f}; routes {st['planner_routes']}; every "
+        f"answer within rtol 1e-4 of scipy (largest scalar rel err "
+        f"{worst:.3e})")
+    del svc, g
+    torch.cuda.empty_cache()
+    return runs
+
+
+def launcher_phase(torch, pt):
+    """``repro_torch.launch.serve_sssp.main`` in process on the card, on
+    grid n = 2^14 with ``--verify`` (16 answers against the port's
+    Python Dijkstra): ``--landmarks 4 --deltas 1`` (``auto`` -> frontier:
+    the targeted waves launch B2) and ``--bidirectional`` (every miss
+    meets in the middle on the frontier route: B1 twice a round).  rc 0
+    required.  Returns the launch counts of both runs."""
+    from repro_torch.launch import serve_sssp
+    runs = []
+    base = ["--family", "grid", "--n", str(LAUNCH_N), "--batch", "8",
+            "--device", DEVICE, "--verify"]
+    for extra, need in ((["--queries", "64", "--landmarks", "4",
+                          "--deltas", "1"], "frontier_relax_csr"),
+                        (["--queries", "32", "--bidirectional"],
+                         "frontier_relax")):
+        args = base + extra
+        rc, ms, lc = timed_run(torch, lambda: serve_sssp.main(args))
+        runs.append(lc)
+        log(f"  serve_sssp {' '.join(args)}: rc {rc}, {ms:.1f} ms, B1 "
+            f"{lc['frontier_relax']}, B2 {lc['frontier_relax_csr']} "
+            f"launches; all {nonzero(lc)}")
+        check(rc == 0, f"serve_sssp {' '.join(args)} returned {rc}")
+        check(lc[need] > 0, f"serve_sssp {' '.join(extra)}: no {need} "
+                            "launched")
+    return runs
+
+
+def baselines_phase(torch, pt, main_runs):
+    """Bellman-Ford and Δ-stepping (Δ = 0.25, 1.0) from the main path's
+    first source on gnp 2^20 and grid side 1024: rounds, phases, light
+    iterations, ms and host reads; each ``dist`` bitwise the main path's
+    SP4 ``dist`` for that source (every exact algorithm here ends at the
+    same f32 fixpoint), and Bellman-Ford's within rtol 1e-4 of scipy.
+    Returns the launch counts of every run."""
+    sssp = pt["sssp"]
+    runs = []
+    for name, key in (("gnp", "gnp/segment"), ("grid", "grid/frontier")):
+        sp4 = main_runs[key]["solve"]
+        s0 = sp4["res"].source
+        n, src, dst, w = graph_arrays(pt, name)
+        g = sssp.build_graph(n, src, dst, w, device=DEVICE)
+        for what, fn in (
+                ("Bellman-Ford", lambda: sssp.run_bellman_ford(g, s0)),
+                ("delta-stepping 0.25", lambda: sssp.run_delta_stepping(
+                    g, s0, delta=0.25)),
+                ("delta-stepping 1.0", lambda: sssp.run_delta_stepping(
+                    g, s0, delta=1.0))):
+            res, ms, lc = timed_run(torch, fn)
+            runs.append(lc)
+            depth = (f"rounds {res.rounds}" if what == "Bellman-Ford" else
+                     f"phases {res.phases}, light iterations "
+                     f"{res.light_iters}")
+            ok = torch.equal(res.dist, sp4["res"].dist)
+            log(f"  {name} {what} from {s0}: {ms:.1f} ms, {depth}, host "
+                f"reads {res.host_syncs}; SP4 {sp4['ms']:.1f} ms in "
+                f"{sp4['rounds']} rounds; dist bitwise SP4's: {ok}")
+            check(ok, f"[baselines] {name} {what}: dist differs from the "
+                      "main path's SP4 dist")
+            if what == "Bellman-Ford":
+                check(res.host_syncs == res.rounds, f"[baselines] {name}: "
+                      f"{res.host_syncs} host reads in {res.rounds} rounds")
+                against_scipy(torch, [res.dist], n, src, dst, w, [s0],
+                              f"[baselines] {name} Bellman-Ford")
+            else:
+                check(res.host_syncs == res.phases + 1 + res.light_iters,
+                      f"[baselines] {name} {what}: {res.host_syncs} host "
+                      "reads")
+        del g
+        torch.cuda.empty_cache()
+    return runs
+
+
+def serve_parity_runs(torch, sssp, gen, n, device, wrap):
+    """``[parity]``'s service and baseline runs on ``device``, each group
+    through ``wrap`` (as ``parity_runs``).  A planned service
+    (``WavePlanner(margin=1e30)``, 4 landmarks, bidirectional) on the
+    grid via "auto" (frontier) and on gnp via "pallas": a wave of 30
+    scalar and 2 full-vector queries, ``apply_delta`` of 64 random edges,
+    a second wave; answers (f32 bits, paths, vectors), every stat but the
+    timers, the delta's stats and the service's own reads.  Then
+    Bellman-Ford and Δ-stepping (0.25, 1.0) from 2 sources on gnp.
+    Returns ``{(kind, route): (rows, launches, uncounted)}``."""
+    from repro_torch.runtime.planner import WavePlanner
+    from repro_torch.runtime.sssp_service import Query, SSSPService
+    out = {}
+    for family, be in (("grid", "auto"), ("gnp", "pallas")):
+        nn, src, dst, w = gen.make(family, n, seed=1)
+        g = sssp.build_graph(nn, src, dst, w, device=device)
+        rng = np.random.default_rng(7)
+        hot = rng.choice(nn, 8, replace=False)
+        waves = [[(int(rng.choice(hot)), int(rng.integers(nn)))
+                  for _ in range(30)] + [(int(rng.choice(hot)), None)] * 2
+                 for _ in range(2)]
+        delta = sssp.random_delta(g, 64, seed=9)
+        svc = SSSPService(g, backend=be, batch=8, landmarks=4,
+                          planner=WavePlanner(margin=1e30),
+                          bidirectional=True, device=device)
+
+        def wave(i):
+            qs = [Query(s, t) for s, t in waves[i]]
+            svc.serve(qs)
+            return [(q.source, q.target, None if q.distance is None
+                     else np.float32(q.distance).tobytes(), q.path, q.dist)
+                    for q in qs]
+        rows, launches, hidden = {}, {}, {}
+        for part, fn in (("wave 0", lambda: wave(0)),
+                         ("delta", lambda: svc.apply_delta(delta)),
+                         ("wave 1", lambda: wave(1))):
+            rows[part], lc, hidden[part] = wrap(fn)
+            for k, v in lc.items():
+                launches[k] = launches.get(k, 0) + v
+        rows["stats"] = {k: v for k, v in svc.stats.items()
+                         if k not in ("solve_seconds", "delta_seconds")}
+        rows["reads"] = svc.host_reads
+        rows["bidi"] = svc._bidi.backend
+        out[("serve", svc.solver.backend)] = (rows, launches, hidden)
+        del svc, g
+    nn, src, dst, w = gen.make("gnp", n, seed=1)
+    g = sssp.build_graph(nn, src, dst, w, device=device)
+
+    def baselines():
+        res = []
+        for s in (0, nn // 2):
+            res.append(sssp.run_bellman_ford(g, s))
+            res += [sssp.run_delta_stepping(g, s, delta=d)
+                    for d in (0.25, 1.0)]
+        return res
+    res, lc, hidden = wrap(baselines)
+    rows = [dict(dist=r.dist.cpu().numpy(), host_syncs=r.host_syncs,
+                 depth=[getattr(r, k, None) for k in (
+                     "rounds", "phases", "light_iters")]) for r in res]
+    out[("baselines", "gnp")] = (rows, lc, {"runs": hidden})
+    return out
+
+
+def serve_parity_cpu(n):
+    """The CPU side of ``serve_parity_runs``, in a worker process."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch import sssp
+    from repro_torch.core import generators
+    torch.set_num_threads(2)
+    return serve_parity_runs(torch, sssp, generators, n, "cpu",
+                             lambda fn: (fn(), {}, []))
+
+
+def serve_parity_check(key, a, b, launches, hidden) -> None:
+    """One service or baseline group of ``[parity]``: the card's rows
+    against the CPU's, no uncounted sync in the waves or the baselines,
+    none in the engine's modules during ``apply_delta``, the route's
+    kernels launched."""
+    kind, be = key
+    ok = same_rows(a, b)
+    if kind == "serve":
+        st = a["stats"]
+        log(f"  service {be:8s} (bidirectional {a['bidi']}) card == cpu: "
+            f"{ok} (routes {st['planner_routes']}, cache hits "
+            f"{st['cache_hits']}, batches {st['batches']}, bidi solves "
+            f"{st['bidi_solves']}, pair warm refreshed "
+            f"{st['pair_warm_refreshed']}; the service's own reads "
+            f"{a['reads']}; launches {launches}; uncounted syncs: waves "
+            f"{sites(hidden['wave 0'] + hidden['wave 1'])}, apply_delta "
+            f"{sites(hidden['delta'])})")
+        check(not hidden["wave 0"] and not hidden["wave 1"],
+              f"[parity] service {be}: uncounted host syncs in a wave")
+        check(not [h for h in hidden["delta"]
+                   if h.split(":")[0] in ENGINE_FILES],
+              f"[parity] service {be}: an uncounted host sync in the "
+              f"engine during apply_delta: {sites(hidden['delta'])}")
+        need = (("frontier_relax_csr", "frontier_relax") if be == "frontier"
+                else ("relax_ell", "masked_min_pair"))
+        check(all(launches.get(k, 0) > 0 for k in need),
+              f"[parity] service {be}: launches {launches}")
+    else:
+        log(f"  baselines {be} card == cpu: {ok} (rounds / phases / light "
+            f"iterations {[r['depth'] for r in a]}, host reads "
+            f"{[r['host_syncs'] for r in a]}; uncounted "
+            f"{sites(hidden['runs'])})")
+        check(not hidden["runs"], "[parity] baselines: uncounted syncs")
+    check(ok, f"[parity] {kind} {be}: card and CPU differ")
+
+
 def profile_phase(torch, pt, rounds: int = 400):
     """Device time by kernel over the first ``rounds`` rounds of each
     main-path route, of a grid bidirectional pair (frontier) and of a
@@ -1714,9 +2206,9 @@ def profile_phase(torch, pt, rounds: int = 400):
     gen, sssp = pt["generators"], pt["sssp"]
     dev = torch.device(DEVICE)
     cfg = dataclasses.replace(sssp.SP4_CONFIG, max_rounds=rounds)
-    n, src, dst, w = gen.grid(GRID_SIDE, seed=0)
+    n, src, dst, w = graph_arrays(pt, "grid")
     grid = sssp.build_graph(n, src, dst, w, device=dev)
-    n, src, dst, w = gen.gnp(GNP_N, avg_deg=8.0, seed=0)
+    n, src, dst, w = graph_arrays(pt, "gnp")
     gnp = sssp.build_graph(n, src, dst, w, device=dev)
     bidi = sssp.BidirectionalSolver(grid, cfg)
     fleet = sssp.FleetSolver(sssp.build_fleet(
@@ -2036,6 +2528,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     runs_fleet = phase("fleet", "graph fleets and congestion replay",
                        lambda: fleet_phase(torch, pt))
+    runs_serve = phase("serve", "the SSSP query service, n = 2^20",
+                       lambda: serve_phase(torch, pt))
+    runs_launch = phase("launch", "the serve_sssp launcher, grid n = 2^14",
+                        lambda: launcher_phase(torch, pt))
+    runs_base = phase("baselines", "Bellman-Ford and delta-stepping, n = "
+                      "2^20", lambda: baselines_phase(torch, pt, runs))
     phase("parity", "card vs the port's CPU solve, 2^14 vertices",
           lambda: cpu_parity_phase(torch, pt))
     xd_launch = phase("xdeepfm", "scoring at the FULL config",
@@ -2049,6 +2547,7 @@ def main() -> int:
     main_launch = {k: 0 for k in KERNELS}
     launch_runs = [k["launches"] for r in runs.values() for k in r.values()]
     for lc in (launch_runs + runs_dyn + runs_p2p + runs_bidi + runs_fleet
+               + runs_serve + runs_launch + runs_base
                + [xd_launch, attn_launch]):
         for k, v in lc.items():
             main_launch[k] += v

@@ -29,7 +29,7 @@ import torch
 
 from repro_torch.core.graph import Graph, HostGraph, resolve_device
 from repro_torch.core.sssp.dynamic import DynamicSolver, GraphDelta, make_delta
-from repro_torch.core.sssp.engine import SP4_CONFIG, SSSPConfig
+from repro_torch.core.sssp.engine import SP4_CONFIG, SSSPConfig, SyncCounter
 
 INF = float("inf")
 
@@ -45,8 +45,9 @@ def seed_lower_bounds(d_from: torch.Tensor, d_to: torch.Tensor,
     none, and it becomes -inf before the max.
     """
     one = np.ndim(sources) == 0
-    idx = torch.as_tensor([sources] if one else sources,
-                          dtype=torch.int64).to(d_from.device)
+    idx = torch.as_tensor([sources] if one else sources, dtype=torch.int64)
+    if d_from.is_cuda:     # an async copy from pinned memory: no host sync
+        idx = idx.pin_memory().to(d_from.device, non_blocking=True)
     ds = d_from.index_select(1, idx).T[:, :, None]   # [B, k, 1] d(L, s)
     ts = d_to.index_select(1, idx).T[:, :, None]     # [B, k, 1] d(s, L)
     fwd = d_from[None] - ds                          # d(L, v) - d(L, s)
@@ -185,7 +186,8 @@ class LandmarkIndex:
     def estimate_pairs(self, pairs) -> np.ndarray | None:
         """float64[B] seeded lower bound ``C0[t]`` per (source, target),
         computed on the host from the table columns.  The host copy of
-        the tables is cached against the identity of the live ``d_from``,
+        the tables (one counted read of both) is cached against the
+        identity of the live ``d_from``,
         so any swap of the tables invalidates it.  None when the tables
         cannot vouch (as ``seed``)."""
         if not self.seed_ok or not len(pairs):
@@ -193,10 +195,10 @@ class LandmarkIndex:
         s = np.asarray([p[0] for p in pairs], np.int64)
         t = np.asarray([p[1] for p in pairs], np.int64)
         if self._host_tables is None or self._host_tables[0] is not self.d_from:
-            self._host_tables = (
-                self.d_from,
-                self.d_from.cpu().numpy().astype(np.float64),
-                self.d_to.cpu().numpy().astype(np.float64))
+            both = SyncCounter().read_numpy(torch.stack([self.d_from,
+                                                         self.d_to]))
+            self._host_tables = (self.d_from, both[0].astype(np.float64),
+                                 both[1].astype(np.float64))
         df, dt = self._host_tables[1:]
         with np.errstate(invalid="ignore"):
             fwd = df[:, t] - df[:, s]

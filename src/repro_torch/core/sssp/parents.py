@@ -15,16 +15,17 @@ _INT32_MAX = 2 ** 31 - 1
 
 def parent_pointers(g: Graph, D: torch.Tensor, *,
                     atol: float = 1e-5) -> torch.Tensor:
-    """int32[n] parent vertex per node (-1 for source/unreachable)."""
+    """int32[..., n] parent vertex per node (-1 for source/unreachable);
+    leading dims of ``D`` are lanes on the same graph."""
     Dsrc = g.gather_src(D)
-    Ddst = torch.cat([D, D.new_full((1,), INF)]).index_select(0, g.dst_l)
+    Ddst = g.gather_dst(D)
     feasible = (Dsrc < INF) & ((Dsrc + g.w - Ddst).abs()
                                <= atol * (1 + Ddst))
     key = torch.where(feasible, g.src, g.n + 1)
-    best = torch.full((g.n + 1,), _INT32_MAX, dtype=torch.int32,
-                      device=D.device)
-    best.scatter_reduce_(0, g.dst_l, key, "amin")
-    best = best[: g.n]
+    best = torch.full(D.shape[:-1] + (g.n + 1,), _INT32_MAX,
+                      dtype=torch.int32, device=D.device)
+    best.scatter_reduce_(-1, g.dst_l.expand_as(key), key, "amin")
+    best = best[..., : g.n]
     parent = torch.where(best <= g.n, best, -1)
     return torch.where(D < INF, parent, -1).to(torch.int32)
 

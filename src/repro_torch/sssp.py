@@ -46,13 +46,33 @@ Graph fleets (F same-shape graphs, one run for all members):
     fs.update(sssp.stack_deltas([d0, d1, ...]))  # per-member deltas, warm
     fs.resolve()
 
+Baselines (the paper's comparison points):
+
+    sssp.run_bellman_ford(graph, s)              # .dist, .rounds
+    sssp.run_delta_stepping(graph, s, delta=0.25)   # .phases, .light_iters
+
+Serving (a query service over a DynamicSolver, with caches, landmark
+seeds, bidirectional pairs and the wave planner):
+
+    from repro_torch.runtime.sssp_service import Query, SSSPService
+    svc = SSSPService(graph, batch=8, landmarks=8, planner=True,
+                      bidirectional=True)       # device= as Solver's
+    svc.serve([Query(s, t), Query(s2)])          # .distance/.path, .dist
+    svc.apply_delta(delta)                       # warm hot sources, pairs
+
+or ``python -m repro_torch.launch.serve_sssp --help``.
+
 The distributed subsystem of ``repro.sssp`` is queued in ROADMAP.md.
 """
 from repro_torch.core.graph import (  # noqa: F401
     CsrGraph, EllGraph, Graph, HostGraph, build_csr, build_ell, build_graph)
 from repro_torch.core.sssp.backends import Primitives  # noqa: F401
+from repro_torch.core.sssp.bellman_ford import (  # noqa: F401
+    BFResult, run_bellman_ford)
 from repro_torch.core.sssp.bidirectional import (  # noqa: F401
     BidiResult, BidirectionalSolver)
+from repro_torch.core.sssp.delta_stepping import (  # noqa: F401
+    DeltaResult, run_delta_stepping)
 from repro_torch.core.sssp.dynamic import (  # noqa: F401
     DynamicSolver, GraphDelta, make_delta, make_delta_from_endpoints,
     random_delta)
