@@ -31,7 +31,9 @@ Phases, each failing the run (non-zero exit) if it fails:
     bitwise against each other;
  5. ``[dynamic]``: ``DynamicSolver`` at n = 2^20 (grid via "auto" ->
     frontier, gnp via "auto" -> segment and via "pallas"): 8 tracked
-    sources, ``update`` after 1,024 random edge changes (and on gnp a
+    sources (on the grid the main path's batch: its grid solver is a
+    ``DynamicSolver``), ``update`` after 1,024 random edge changes (and
+    on gnp a
     pure increase), ``resolve``, each held bitwise against a cold solve
     of the mutated graph and against scipy, launches checked;
     ``[p2p]``: ``LandmarkIndex(k=8)`` on gnp (segment) and the grid
@@ -49,8 +51,9 @@ Phases, each failing the run (non-zero exit) if it fails:
     (``solve``, ``solve_batch`` [8, 8], stacked deltas, ``update``,
     ``resolve``), every member bitwise its per-graph solve, host reads
     rounds + 2 whatever F; a frontier fleet of 2 members; a
-    ``CongestionReplay`` of 8 grids of side 256 with a dropout and a
-    straggler, bitwise a fault-free replay;
+    ``CongestionReplay`` of 8 grids of side 128 with a dropout and a
+    straggler, and one with a dropout and on-disk checkpoints
+    (``CheckpointManager``), each bitwise a fault-free replay;
     ``[serve]``: ``SSSPService`` on gnp 2^20 through "pallas" (8
     landmarks, the planner, bidirectional pairs, reselect 0.5), 3 waves
     of 96 scalar and 8 full-vector queries around two 1,024-edge
@@ -62,11 +65,23 @@ Phases, each failing the run (non-zero exit) if it fails:
     landmarks and a delta (B2 launched), then ``--bidirectional`` (B1);
     ``[baselines]``: Bellman-Ford and Δ-stepping (0.25, 1.0) from the
     main path's first source on both 2^20 graphs, bitwise its SP4 dist;
+    ``[distributed]``: ``Solver(backend="distributed")`` on gnp 2^20 at
+    world 1 (a one-rank NCCL group, under torch's sync debug mode) and
+    worlds 2 and 4 (gloo ranks spawned on the one card), ``solve`` and
+    ``solve_batch(8)`` bitwise the main path's segment results, every
+    rank bitwise every other, ``1 + c_prop_iters`` all-reduces a round
+    (their ms and bytes logged); at world 2 also ``[dynamic]``'s gnp
+    update and a grid of side 256;
+    ``[legacy]``: ``run_sssp`` and ``run_sssp_ell`` bitwise the main
+    path's gnp segment and pallas ``solve`` (B3 three times a round, B4
+    once), ``run_sssp_traced`` on gnp 2^14 and a grid of side 128 with
+    the bounds invariants checked every round and the card's trace
+    bitwise the CPU's;
     ``[parity]``: the card bitwise against the port's own CPU run on
-    2^14-vertex graphs of the seven generator families (cold batch,
-    warm update with its stats, seeded targeted batch; bidirectional
-    pairs and a 3-member fleet, cold and updated, on both routes), a
-    planned service on the grid (frontier) and gnp (pallas), two waves
+    2^13-vertex graphs of the seven generator families (cold batch, warm
+    update with its stats, seeded targeted batch;
+    bidirectional pairs and a 3-member fleet, cold and updated, on both
+    routes), a planned service on the grid (frontier) and gnp (pallas), two waves
     around a delta, and the baselines on gnp, the card's runs under
     torch's sync debug mode, the CPU's in 3 worker processes beside them;
  6. xDeepFM scoring at the paper's FULL config (18.9 M table rows)
@@ -92,6 +107,7 @@ from __future__ import annotations
 import argparse
 import collections
 import copy
+import hashlib
 import json
 import statistics
 import subprocess
@@ -112,10 +128,11 @@ DEVICE = "cuda"
 GRID_SIDE = 1024              # grid(side=1024): n = 2^20, 4.2 M edges
 GNP_N = 1 << 20               # gnp(2^20, avg_deg=8): 8.4 M edges
 FRONTIER_CAP = 4096           # the Solver's default cap at n = 2^20
-PARITY_N = 1 << 14            # card vs CPU parity graphs
+PARITY_N = 1 << 13            # card vs CPU parity graphs (sized for the
+#   script's time limit: its runs are host-bound, ~linear in rounds)
 PARITY_HUB_N = 1 << 9         # power_law's frontier fleet (see fleet_parity)
 FLEET_SIDE = 512              # [fleet]: 8 grids, n = 2^18 each
-REPLAY_SIDE = 256             # [fleet] congestion replay: 8 grids, n = 2^16
+REPLAY_SIDE = 128             # [fleet] congestion replay: 8 grids, n = 2^14
 # a landmark seed is a difference of two f32 path sums, each of which may
 # be off by about (hops x 6e-8) of its value: a seed may pass the f32
 # distance by that much, held to 1e-4 of the largest finite table entry
@@ -893,7 +910,8 @@ def main_path(torch, pt):
     g = sssp.build_graph(n, src, dst, w, device=dev)
     batch = [int(s) for s in rng.choice(n, 8, replace=False)]
     s0 = batch[0]
-    solver = sssp.Solver(g, backend="auto")
+    # a DynamicSolver: its tracked batch is [dynamic]'s grid baseline
+    solver = pt["grid_solver"] = sssp.DynamicSolver(g, backend="auto")
     log(f"[main] grid side 1024: n={n} e={g.e}, auto -> {solver.backend} "
         f"(cap {solver.frontier_cap})")
     check(solver.backend == "frontier", "auto did not route grid to "
@@ -1037,7 +1055,7 @@ def parity_runs(torch, sssp, gen, family, n, device, c0, wrap):
     * a 3-member fleet (seeds 2-4) on "segment" and "frontier": a cold
       ``solve``, ``update`` with per-member deltas and ``resolve``.  The
       frontier route's maintenance walks gather ``[cap, max_out_deg,
-      max_in_deg]`` cells a chunk, 4,096 x 6,507^2 for power_law at 2^14:
+      max_in_deg]`` cells a chunk, hub degrees squared on power_law:
       that family's frontier fleet runs at 2^9 with a buffer of 64 (its
       overflow rounds relax densely).
 
@@ -1095,10 +1113,11 @@ def parity_cpu(family, n, c0):
 
 def cpu_parity_phase(torch, pt):
     """The card's solves equal the port's CPU solves (plain versions)
-    bitwise on 2^14-vertex graphs of every family (``parity_runs``: warm
-    updates and seeded targeted batches on two routes, bidirectional
-    pairs and 3-member fleets on two routes each), then the service and
-    the baselines (``serve_parity_runs``).  The card's runs go under
+    bitwise on 2^13-vertex graphs of every family (``parity_runs``:
+    warm updates and seeded targeted batches on two routes,
+    bidirectional pairs and 3-member fleets on two routes each), then
+    the service and the baselines (``serve_parity_runs``).  The card's
+    runs go under
     torch's sync debug mode, which names every host sync the engine's own
     count misses.  The CPU sides run in 3 worker processes while the card
     runs its side (the seeds, from the card's 4-landmark indexes, are
@@ -1197,8 +1216,8 @@ def nonzero(lc) -> dict:
 def dynamic_phase(torch, pt):
     """Warm re-solves at n = 2^20 through ``DynamicSolver``: grid side
     1024 via "auto" (frontier), gnp 2^20 via "auto" (segment) and via
-    "pallas".  Per route: a cold ``solve_batch`` of 8 sources (tracked),
-    ``update`` with 1,024 random edges rescaled by uniform[0.5, 2.0]
+    "pallas".  Per route: a cold ``solve_batch`` of 8 sources (tracked;
+    on the grid the main path's, whose solver tracked it), ``update`` with 1,024 random edges rescaled by uniform[0.5, 2.0]
     (seed 11), then ``resolve``; on gnp also a pure increase of the same
     edges (x uniform[1.0, 2.0]).  Each resolved batch is held bitwise
     (dist, fixed) against a cold ``Solver`` on the mutated graph and two
@@ -1218,19 +1237,27 @@ def dynamic_phase(torch, pt):
     for name, arrays, be, want in routes:
         if arrays is not None:
             n, src, dst, w = arrays
-            g = sssp.build_graph(n, src, dst, w, device=dev)
-        e = g.e
         sources = [int(v) for v in np.random.default_rng(2024).choice(
             n, 8, replace=False)]
-        dyn = sssp.DynamicSolver(g, backend=be)
+        if name == "grid":      # the main path's batch, the same sources
+            dyn = pt.pop("grid_solver")
+            g = dyn.graph
+        else:
+            if arrays is not None:
+                g = sssp.build_graph(n, src, dst, w, device=dev)
+            dyn = sssp.DynamicSolver(g, backend=be)
+        e = g.e
         what = f"{name} {dyn.backend}"
         check(dyn.backend == want, f"[dynamic] {name}: {be} routed to "
                                    f"{dyn.backend}, not {want}")
-        cold0, cold0_ms, lc = timed_run(torch,
-                                        lambda: dyn.solve_batch(sources))
-        runs.append(lc)
-        log(f"  {what}: cold solve_batch(8) {cold0_ms:.1f} ms, rounds "
-            f"{int(cold0.rounds.max())}, launches {nonzero(lc)}")
+        if name == "grid":
+            log(f"  {what}: tracks the main path's solve_batch(8)")
+        else:
+            cold0, cold0_ms, lc = timed_run(
+                torch, lambda: dyn.solve_batch(sources))
+            runs.append(lc)
+            log(f"  {what}: cold solve_batch(8) {cold0_ms:.1f} ms, rounds "
+                f"{int(cold0.rounds.max())}, launches {nonzero(lc)}")
         delta = sssp.random_delta(g, 1024, seed=11)
         kinds = ("mixed x[0.5, 2.0]",) + (
             ("pure increase x[1.0, 2.0]",) if name == "gnp" else ())
@@ -1272,6 +1299,11 @@ def dynamic_phase(torch, pt):
             against_scipy(torch, [res.dist[0], res.dist[1]], n,
                           g.src[:e].cpu().numpy(), g.dst[:e].cpu().numpy(),
                           w_new, sources[:2], f"{what} after the update")
+            if dyn.backend == "segment" and not kind.startswith("pure"):
+                # [distributed] repeats this update at world 2
+                keep["distributed"] = dict(
+                    sources=list(sources), dist_fixed=digest(cold.dist,
+                                                             cold.fixed))
             if dyn.backend == "frontier":
                 check(lc["frontier_relax_csr"] > 0, "[dynamic] the frontier "
                       "update launched no fused frontier relax")
@@ -1607,10 +1639,14 @@ def fleet_phase(torch, pt):
     random edges a member (x uniform[0.5, 2.0]) and ``resolve``, bitwise a
     cold solve of each mutated member; a frontier fleet of the first 2
     members, bitwise the segment fleet's rows, B2 launched.  Then
-    ``CongestionReplay`` over 8 grids of side 256 for 6 ticks with a
-    dropout at tick 3 and a straggler at tick 4, bitwise a fault-free
-    replay.  Returns the launch counts of every counted run."""
+    ``CongestionReplay`` over 8 grids of side 128 for 6 ticks with a
+    dropout at tick 3 and a straggler at tick 4, and again with a
+    dropout and on-disk checkpoints (``CheckpointManager``), each bitwise
+    a fault-free replay.  Returns the launch counts of every counted
+    run."""
+    import tempfile
     gen, sssp = pt["generators"], pt["sssp"]
+    from repro_torch.checkpoint import CheckpointManager
     from repro_torch.distributed.fault import FaultInjector
     from repro_torch.runtime.fleet import CongestionReplay
     runs = []
@@ -1705,12 +1741,12 @@ def fleet_phase(torch, pt):
     del fs, front, fleet, members, solvers, res, colds, cold_fleet
     torch.cuda.empty_cache()
 
-    def replay(fault):
+    def replay(fault, manager=None):
         fl = sssp.build_fleet([gen.grid(REPLAY_SIDE, seed=f)
                                for f in range(F)])
         rp = CongestionReplay(sssp.FleetSolver(fl), seed=5, ckpt_every=4,
                               queries_per_tick=4, fault=fault,
-                              straggler_z=2.0)
+                              straggler_z=2.0, manager=manager)
         t0 = time.perf_counter()
         stats = rp.run(6)
         return rp, stats, time.perf_counter() - t0
@@ -1732,6 +1768,21 @@ def fleet_phase(torch, pt):
               "fault-free replay")
     check(st["restarts"] == 1 and st["stragglers_flagged"] >= 1,
           f"[fleet] replay stats {st}")
+    with tempfile.TemporaryDirectory() as ckpt:
+        manager = CheckpointManager(ckpt, keep=2)
+        (disk, st, d_s), _, lc_d = timed_run(torch, lambda: replay(
+            FaultInjector({3: ("dropout", 0)}), manager))
+        steps = manager.steps()
+    runs.append(lc_d)
+    ok = (np.array_equal(clean.weights(), disk.weights())
+          and np.array_equal(clean.distances(), disk.distances()))
+    log(f"  CongestionReplay on disk (CheckpointManager, keep 2), dropout "
+        f"at tick 3: {d_s:.2f} s, {st['ticks']} ticks run, restarts "
+        f"{st['restarts']}, checkpoints kept {steps}; weights and "
+        f"distances bitwise the fault-free replay's: {ok}")
+    check(ok and st["restarts"] == 1, "[fleet] the on-disk replay after a "
+                                      "dropout differs from the fault-free "
+                                      "replay")
     return runs
 
 
@@ -2082,6 +2133,327 @@ def baselines_phase(torch, pt, main_runs):
                       "reads")
         del g
         torch.cuda.empty_cache()
+    return runs
+
+
+# ---------------------------------------------------------------------------
+# the distributed backend and the legacy entry points
+# ---------------------------------------------------------------------------
+
+DIST_WORLDS = (2, 4)          # gloo ranks sharing the one card
+DIST_GRID_SIDE = 256          # [distributed]'s grid solve at world 2
+RANK_DEADLINE = 600.0         # seconds a spawned group may take in all
+TRACE_N = 1 << 14             # [legacy]'s traced gnp
+TRACE_GRID_SIDE = 128         # [legacy]'s traced grid, n = 2^14
+
+
+def digest(*tensors) -> str:
+    """sha256 of the tensors' dtypes, shapes and bytes: two results are
+    bitwise equal when their digests are."""
+    h = hashlib.sha256()
+    for t in tensors:
+        a = t.detach().cpu().numpy()
+        h.update(f"{a.dtype}{a.shape}".encode())
+        h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def result_digest(res) -> dict:
+    """A solve's or batch's dist, C, fixed (digests), rounds, fixed_by."""
+    return dict(dist=digest(res.dist), C=digest(res.C),
+                fixed=digest(res.fixed),
+                rounds=np.asarray(res.rounds).tolist(),
+                fixed_by=res.fixed_by)
+
+
+def dist_rank(rank, world, spec):
+    """One gloo rank of ``[distributed]`` on the card (cuda:0, shared with
+    the other ranks; ``spec`` names the device and the sizes): builds its
+    graphs from the generators (no tensor crosses processes), runs the
+    distributed ``Solver`` (and at world 2 the ``DynamicSolver`` update
+    and the grid solve), and returns host values: digests, rounds, times
+    and the collectives' counts."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch import sssp
+    from repro_torch.core import generators as gen
+    dev = torch.device(spec["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev.index or 0)
+
+    def run(solver, fn, extra=None):
+        solver.collectives.reset()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        out = dict(ms=ms, calls=solver.collectives.calls,
+                   bytes=solver.collectives.bytes,
+                   coll_ms=solver.collectives.ms())
+        out.update(extra(res) if extra else result_digest(res))
+        return out
+
+    out = {}
+    n, src, dst, w = gen.gnp(spec["gnp_n"], avg_deg=8.0, seed=0)
+    g = sssp.build_graph(n, src, dst, w, device=dev)
+    solver = sssp.Solver(g, backend="distributed", device=dev)
+    solver.collectives.timed = True
+    out["world"], out["rank"] = solver.world, solver.rank
+    out["solve"] = run(solver, lambda: solver.solve(spec["s0"]))
+    out["solve_batch"] = run(solver,
+                             lambda: solver.solve_batch(spec["batch"]))
+    if spec["dynamic"]:
+        dyn = sssp.DynamicSolver(g, backend="distributed", device=dev)
+        dyn.collectives.timed = True
+        dyn.solve_batch(spec["dyn_sources"])
+        delta = sssp.random_delta(dyn.graph, 1024, seed=11)  # [dynamic]'s
+        keep = {}
+
+        def update():
+            keep["stats"] = dyn.update(delta)
+            return dyn.resolve(spec["dyn_sources"])
+        out["update"] = run(dyn, update, lambda r: dict(
+            dist_fixed=digest(r.dist, r.fixed),
+            rounds=keep["stats"]["warm_rounds"],
+            sweeps=keep["stats"]["sweeps"]))
+        del dyn
+    del solver, g
+    if spec["grid"]:
+        n, src, dst, w = gen.grid(spec["grid_side"], seed=0)
+        grid = sssp.Solver(sssp.build_graph(n, src, dst, w, device=dev),
+                           backend="distributed", device=dev)
+        grid.collectives.timed = True
+        out["grid"] = run(grid, lambda: grid.solve(spec["grid_source"]))
+    return out
+
+
+def distributed_phase(torch, pt, main_runs, dyn_ref):
+    """The distributed backend at the main path's width (gnp 2^20).
+    World 1: a one-rank NCCL group in this process, ``solve`` and
+    ``solve_batch(8)`` of the main path's sources under torch's sync
+    debug mode (no uncounted sync), bitwise the main path's segment
+    results, exactly ``1 + c_prop_iters`` all-reduces a round.  Worlds 2
+    and 4: gloo ranks spawned on the one card (``spawn_ranks``, a
+    deadline of ``RANK_DEADLINE``), the same solves bitwise, every rank
+    bitwise every other; at world 2 also ``[dynamic]``'s gnp update
+    (bitwise its cold re-solve of the mutated graph) and a grid of side
+    256 (bitwise a segment solve here).  Logs each world's rounds' ms
+    and its all-reduces' ms and bytes a round.  Returns the launch
+    counts of the world-1 runs."""
+    import datetime
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.distributed.ranks import spawn_ranks
+    sssp, gen = pt["sssp"], pt["generators"]
+    per_round = 1 + sssp.SP4_CONFIG.c_prop_iters
+    want = {k: result_digest(main_runs["gnp/segment"][k]["res"])
+            for k in ("solve", "solve_batch")}
+    s0 = main_runs["gnp/segment"]["solve"]["res"].source
+    batch = [int(v) for v in main_runs["gnp/segment"]["solve_batch"][
+        "res"].sources]
+    runs = []
+
+    def report(world, kind, r):
+        rounds = max(np.atleast_1d(r["rounds"]))
+        log(f"  world {world} {kind}: {r['ms']:.1f} ms, rounds {rounds}, "
+            f"{r['ms'] / max(rounds, 1):.3f} ms a round; all-reduces "
+            f"{r['calls']} ({r['calls'] / max(rounds, 1):.2f} a round), "
+            f"{r['bytes'] / max(r['calls'], 1) / 2 ** 20:.2f} MiB each, "
+            f"{r['coll_ms']:.1f} ms in all, "
+            f"{r['coll_ms'] / max(rounds, 1):.3f} ms a round")
+        return rounds
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # --- world 1: a one-rank NCCL group --------------------------
+        dist.init_process_group(
+            "nccl", init_method=f"file://{tmp}/nccl", rank=0, world_size=1,
+            timeout=datetime.timedelta(seconds=300))
+        try:
+            warm = torch.zeros(1, device=DEVICE)
+            dist.all_reduce(warm, op=dist.ReduceOp.MIN)  # communicator
+            torch.cuda.synchronize()
+            n, src, dst, w = graph_arrays(pt, "gnp")
+            g = sssp.build_graph(n, src, dst, w, device=DEVICE)
+            solver = sssp.Solver(g, backend="distributed")
+            solver.collectives.timed = True
+            check(solver.world == 1 and solver.group is not None,
+                  f"[distributed] world {solver.world}, group "
+                  f"{solver.group}: not the one-rank NCCL group")
+            for kind, fn in (("solve", lambda: solver.solve(s0)),
+                             ("solve_batch",
+                              lambda: solver.solve_batch(batch))):
+                solver.collectives.reset()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                res, lc, hidden = sync_debugged(torch, fn)
+                torch.cuda.synchronize()
+                r = dict(ms=(time.perf_counter() - t0) * 1e3,
+                         calls=solver.collectives.calls,
+                         bytes=solver.collectives.bytes,
+                         coll_ms=solver.collectives.ms(),
+                         **result_digest(res))
+                runs.append(lc)
+                rounds = report(1, kind, r)
+                check(all(r[k] == want[kind][k] for k in want[kind]),
+                      f"[distributed] world 1 {kind} differs from the "
+                      "main path's segment result")
+                check(r["calls"] == rounds * per_round,
+                      f"[distributed] world 1 {kind}: {r['calls']} "
+                      f"all-reduces in {rounds} rounds")
+                check(not hidden, f"[distributed] world 1 {kind}: host "
+                                  f"syncs the engine does not count at "
+                                  f"{hidden}")
+            log("  world 1 (NCCL): solve and solve_batch(8) bitwise the "
+                "main path's segment results; no uncounted sync")
+            # where the checked solve's time went: the same solve again
+            # under the checked run's conditions, then without sync debug
+            # mode, then without the all-reduces' events, then a segment
+            # solve of the same graph in this process
+            seg = sssp.Solver(g, backend="segment")
+
+            def again(fn, debug, timed):
+                solver.collectives.reset()
+                solver.collectives.timed = timed
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if debug:
+                    sync_debugged(torch, fn)
+                else:
+                    fn()
+                torch.cuda.synchronize()
+                return (time.perf_counter() - t0) * 1e3
+            ms = [again(lambda: solver.solve(s0), True, True),
+                  again(lambda: solver.solve(s0), False, True),
+                  again(lambda: solver.solve(s0), False, False),
+                  again(lambda: seg.solve(s0), False, False)]
+            log(f"  world 1 solve again: sync debug mode and events "
+                f"{ms[0]:.1f} ms, events {ms[1]:.1f} ms, neither "
+                f"{ms[2]:.1f} ms; a segment solve here {ms[3]:.1f} ms")
+            del seg
+            del solver, g
+            torch.cuda.empty_cache()
+        finally:
+            dist.destroy_process_group()
+
+        # --- worlds 2 and 4: gloo ranks sharing the card ---------------
+        n, src, dst, w = gen.grid(DIST_GRID_SIDE, seed=0)
+        grid_source = int(np.random.default_rng(2024).integers(n))
+        grid_want = result_digest(sssp.Solver(
+            sssp.build_graph(n, src, dst, w, device=DEVICE),
+            backend="segment").solve(grid_source))
+        for world in DIST_WORLDS:
+            spec = dict(device=DEVICE, gnp_n=GNP_N, s0=s0, batch=batch,
+                        dynamic=world == 2, dyn_sources=dyn_ref["sources"],
+                        grid=world == 2, grid_side=DIST_GRID_SIDE,
+                        grid_source=grid_source)
+            t0 = time.perf_counter()
+            outs = spawn_ranks(dist_rank, world, (spec,), init_dir=tmp,
+                               timeout=300.0, deadline=RANK_DEADLINE)
+            log(f"  world {world} (gloo, {world} ranks on one card): "
+                f"{time.perf_counter() - t0:.1f} s with start-up")
+            check([o["world"] for o in outs] == [world] * world
+                  and [o["rank"] for o in outs] == list(range(world)),
+                  f"[distributed] world {world}: ranks report "
+                  f"{[(o['rank'], o['world']) for o in outs]}")
+            kinds = [("solve", want["solve"]),
+                     ("solve_batch", want["solve_batch"])]
+            if world == 2:
+                kinds += [("update", dict(dist_fixed=dyn_ref["dist_fixed"])),
+                          ("grid", grid_want)]
+            for kind, ref_digest in kinds:
+                rounds = report(world, kind, outs[0][kind])
+                for o in outs:
+                    check(all(o[kind][k] == ref_digest[k]
+                              for k in ref_digest),
+                          f"[distributed] world {world} rank {o['rank']} "
+                          f"{kind} differs from the single-device result")
+                    check(all(o[kind][k] == outs[0][kind][k]
+                              for k in ("dist", "C", "fixed", "dist_fixed",
+                                        "rounds", "fixed_by", "calls")
+                              if k in o[kind]),
+                          f"[distributed] world {world}: rank "
+                          f"{o['rank']} differs from rank 0 ({kind})")
+                    if kind != "update":
+                        check(o[kind]["calls"] == rounds * per_round,
+                              f"[distributed] world {world} {kind}: "
+                              f"{o[kind]['calls']} all-reduces in "
+                              f"{rounds} rounds")
+            upd = outs[0].get("update")
+            if upd is not None:
+                log(f"  world {world} update: sweeps {upd['sweeps']}, warm "
+                    f"rounds {upd['rounds']}; bitwise [dynamic]'s cold "
+                    "re-solve of the mutated graph")
+            log(f"  world {world}: every rank bitwise the single-device "
+                "results and every other rank")
+    return runs
+
+
+def legacy_phase(torch, pt, main_runs):
+    """The legacy entry points.  ``run_sssp`` and ``run_sssp_ell`` from
+    the main path's first gnp source at n = 2^20, bitwise its segment
+    and pallas ``solve``, ``run_sssp_ell`` launching B3 three times and
+    B4 once a round.  ``run_sssp_traced`` on gnp 2^14 and a grid of
+    side 128: every round's C <= scipy's cost <= D (rtol 1e-4), C rising
+    and D falling (within the reference test's 1e-6), and the card's
+    trace bitwise the port's CPU trace, key by key, round by round.
+    Returns the launch counts of every counted run."""
+    sssp, gen = pt["sssp"], pt["generators"]
+    runs = []
+    n, src, dst, w = graph_arrays(pt, "gnp")
+    g = sssp.build_graph(n, src, dst, w, device=DEVICE)
+    seg = main_runs["gnp/segment"]["solve"]
+    pal = main_runs["gnp/pallas"]["solve"]
+    s0 = seg["res"].source
+    res, ms, lc = timed_run(torch, lambda: sssp.run_sssp(g, s0))
+    runs.append(lc)
+    check(same(torch, res, seg["res"]), "[legacy] run_sssp differs from "
+                                        "the main path's segment solve")
+    log(f"  run_sssp gnp 2^20 from {s0}: {ms:.1f} ms, rounds {res.rounds}, "
+        f"host reads {res.host_syncs}; bitwise the segment solve "
+        f"({seg['ms']:.1f} ms)")
+    ell = sssp.build_ell(n, src, dst, w, device=DEVICE)
+    res, ms, lc = timed_run(torch, lambda: sssp.run_sssp_ell(g, ell, s0))
+    runs.append(lc)
+    check(same(torch, res, pal["res"]), "[legacy] run_sssp_ell differs "
+                                        "from the main path's pallas solve")
+    check(lc["relax_ell"] == 3 * res.rounds
+          and lc["masked_min_pair"] == res.rounds,
+          f"[legacy] run_sssp_ell launched B3 {lc['relax_ell']} and B4 "
+          f"{lc['masked_min_pair']} times in {res.rounds} rounds (want 3 "
+          "and 1 a round)")
+    log(f"  run_sssp_ell gnp 2^20: {ms:.1f} ms, rounds {res.rounds}, "
+        f"launches {nonzero(lc)} (B3 3 a round, B4 1); bitwise the pallas "
+        f"solve ({pal['ms']:.1f} ms)")
+    del g, ell
+    torch.cuda.empty_cache()
+    for name, (nn, src, dst, w) in (
+            ("gnp 2^14", gen.gnp(TRACE_N, avg_deg=8.0, seed=0)),
+            (f"grid side {TRACE_GRID_SIDE}", gen.grid(TRACE_GRID_SIDE,
+                                                      seed=0))):
+        gc = sssp.build_graph(nn, src, dst, w, device=DEVICE)
+        res, ms, lc = timed_run(torch, lambda: sssp.run_sssp_traced(gc, 0))
+        runs.append(lc)
+        cpu = sssp.run_sssp_traced(
+            sssp.build_graph(nn, src, dst, w, device="cpu"), 0)
+        cost = scipy_dist(nn, src, dst, w, [0])[0]
+        tol = 1e-4 * np.where(np.isinf(cost), 0.0, cost)
+        bounds = all((t["C"] <= cost + tol).all()
+                     and (cost <= t["D"] + tol).all() for t in res.trace)
+        mono = all((t["C"] >= t["prev_C"] - 1e-6).all()
+                   and (t["D"] <= t["prev_D"] + 1e-6).all()
+                   for t in res.trace)
+        ok = same_rows(res.trace, cpu.trace)
+        log(f"  run_sssp_traced {name}: {ms:.1f} ms, {len(res.trace)} "
+            f"rounds, host reads {res.host_syncs}; C <= cost <= D every "
+            f"round: {bounds}; C up, D down: {mono}; card trace == CPU "
+            f"trace: {ok}")
+        check(bounds and mono, f"[legacy] {name}: a traced round breaks "
+                               "the bounds invariants")
+        check(ok and len(res.trace) == res.rounds > 0,
+              f"[legacy] {name}: the card's trace differs from the CPU's")
     return runs
 
 
@@ -2518,6 +2890,7 @@ def main() -> int:
     runs_dyn, dyn_keep = phase(
         "dynamic", "warm re-solves after a weight delta, n = 2^20",
         lambda: dynamic_phase(torch, pt))
+    dist_ref = dyn_keep.pop("distributed")
     runs_p2p, p2p_keep = phase(
         "p2p", "landmark-seeded targeted queries, n = 2^20",
         lambda: p2p_phase(torch, pt, runs))
@@ -2534,7 +2907,13 @@ def main() -> int:
                         lambda: launcher_phase(torch, pt))
     runs_base = phase("baselines", "Bellman-Ford and delta-stepping, n = "
                       "2^20", lambda: baselines_phase(torch, pt, runs))
-    phase("parity", "card vs the port's CPU solve, 2^14 vertices",
+    runs_dist = phase("distributed", "the edge-sharded backend, gnp "
+                      "n = 2^20, worlds 1 (NCCL) and 2, 4 (gloo)",
+                      lambda: distributed_phase(torch, pt, runs, dist_ref))
+    runs_legacy = phase("legacy", "run_sssp, run_sssp_ell, "
+                        "run_sssp_traced", lambda: legacy_phase(torch, pt,
+                                                                runs))
+    phase("parity", "card vs the port's CPU solve, 2^13 vertices",
           lambda: cpu_parity_phase(torch, pt))
     xd_launch = phase("xdeepfm", "scoring at the FULL config",
                       lambda: xdeepfm_phase(torch))
@@ -2547,8 +2926,8 @@ def main() -> int:
     main_launch = {k: 0 for k in KERNELS}
     launch_runs = [k["launches"] for r in runs.values() for k in r.values()]
     for lc in (launch_runs + runs_dyn + runs_p2p + runs_bidi + runs_fleet
-               + runs_serve + runs_launch + runs_base
-               + [xd_launch, attn_launch]):
+               + runs_serve + runs_launch + runs_base + runs_dist
+               + runs_legacy + [xd_launch, attn_launch]):
         for k, v in lc.items():
             main_launch[k] += v
     kernels = []

@@ -8,6 +8,11 @@ ops; a backend is a concrete choice of them.  Every op is batch-first:
         (+inf where none): the relax, and the Eqn-(1) C-propagation.
     in_weight_nf(nf_mask)   [B, n] -> float32[B, n]
         min in-edge weight over sources in nf_mask.
+    relax2(x, src_mask, nf_mask) -> (relax(x, src_mask),
+                                     in_weight_nf(nf_mask))
+        optional fusion hook: both depend only on round-start state, so
+        a backend may fuse them (the distributed backend stacks them into
+        one all-reduce).  None runs them separately.
     masked_min_pair(x, mask, add)  [B, n] x [B, n] x [n] | None
                             -> float32[B, 2]
         per-lane min over masked vertices of x (the heap minimum of
@@ -25,15 +30,18 @@ ops; a backend is a concrete choice of them.  Every op is batch-first:
 
 ``stacked_segment_prims`` and ``lane_frontier_prims`` run over a
 ``GraphStack``: lane l on member ``l // per``, every op one set of
-launches for all lanes.  The reference's ``relax2`` fusion hook serves
-the distributed backend (ROADMAP A10).
+launches for all lanes.  ``distributed_prims`` reduces one rank's block
+of the edge list and combines the ranks' partial minima with an
+all-reduce (``core/sssp/distributed.py``).
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core.graph import INF, CsrGraph, EllGraph, Graph, GraphStack
 from repro_torch.kernels import ops, ref
@@ -47,6 +55,7 @@ class Primitives:
     in_weight_nf: Callable[[torch.Tensor], torch.Tensor]
     masked_min_pair: Callable[[torch.Tensor, torch.Tensor,
                                torch.Tensor | None], torch.Tensor]
+    relax2: Callable | None = None  # optional fused (relax, in_weight_nf)
     frontier_cap: int = 0           # static frontier-buffer size (0 = dense)
     walk_width: int = 1             # max_out_deg * max_in_deg: cells a
     #   walked source costs each lane in out_nbrs -> in_min_at
@@ -167,3 +176,79 @@ def lane_frontier_prims(s: GraphStack, csrs: list[CsrGraph],
 
     return dataclasses.replace(base, frontier_cap=int(cap),
                                relax_frontier=relax_frontier)
+
+
+class CollectiveCounter:
+    """The distributed backend's combines: ``calls`` all-reduces and the
+    ``bytes`` each rank sent into them.  A world of one without a process
+    group counts its combines too, though each is the identity.  Once
+    ``timed`` is set, each all-reduce is timed (CUDA events on the current
+    stream for card tensors, the host clock for CPU ones, whose
+    all-reduce blocks); ``ms()`` waits for the events and sums."""
+
+    def __init__(self):
+        self.timed = False
+        self.calls = 0
+        self.bytes = 0
+        self._spans: list = []
+
+    def reset(self) -> None:
+        self.calls = self.bytes = 0
+        self._spans = []
+
+    def all_reduce_min(self, t: torch.Tensor, group) -> torch.Tensor:
+        """``t`` (made contiguous: collectives reject strided views) with
+        every rank's elementwise minimum, in place; the identity when
+        ``group`` is None."""
+        t = t.contiguous()
+        self.calls += 1
+        self.bytes += t.numel() * t.element_size()
+        if group is None:
+            return t
+        if not self.timed:
+            dist.all_reduce(t, op=dist.ReduceOp.MIN, group=group)
+        elif t.is_cuda:
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            dist.all_reduce(t, op=dist.ReduceOp.MIN, group=group)
+            ev[1].record()
+            self._spans.append(ev)
+        else:
+            t0 = time.perf_counter()
+            dist.all_reduce(t, op=dist.ReduceOp.MIN, group=group)
+            self._spans.append((time.perf_counter() - t0) * 1e3)
+        return t
+
+    def ms(self) -> float:
+        """Summed milliseconds of the timed all-reduces."""
+        return sum(s if isinstance(s, float) else s[0].elapsed_time(s[1])
+                   for s in self._spans)
+
+
+def distributed_prims(lg: Graph, group, counter: CollectiveCounter
+                      ) -> Primitives:
+    """Edge-sharded segment reductions: ``lg`` is this rank's block of the
+    dst-sorted edge list (``distributed.local_block``; same ``n``), the
+    vertex arrays are replicated on every rank, so each rank reduces its
+    block and ``counter.all_reduce_min`` combines the partial minima over
+    ``group`` (min is exact and the blocks partition the edges, so any
+    world size gives the single-device bits).  ``relax2`` stacks the
+    round's two reductions into one all-reduce of ``[2, B, n]``; the
+    masked minima need no collective."""
+    local = segment_prims(lg)
+
+    def relax(x, src_mask):
+        return counter.all_reduce_min(local.relax(x, src_mask), group)
+
+    def in_weight_nf(nf_mask):
+        return counter.all_reduce_min(local.in_weight_nf(nf_mask), group)
+
+    def relax2(x, src_mask, nf_mask):
+        both = counter.all_reduce_min(torch.stack(
+            [local.relax(x, src_mask), local.in_weight_nf(nf_mask)]), group)
+        return both[0], both[1]
+
+    return Primitives(relax=relax, in_weight_nf=in_weight_nf,
+                      masked_min_pair=ref.masked_min_pair_ref,
+                      relax2=relax2)

@@ -195,7 +195,10 @@ class DynamicSolver(Solver):
     of ``track_sources`` entries.  ``update(delta)`` applies a weight
     delta to every layout and warm-refreshes the tracked sources in one
     batch-first run; ``graph``/``ell``/``csr``/``prims`` always hold the
-    newest version and ``version`` counts the deltas applied.
+    newest version and ``version`` counts the deltas applied.  On the
+    distributed backend every rank keeps the whole graph: the taint seeds
+    come from the whole old graph, and the taint sweeps (one all-reduce
+    each) and warm rounds run on this rank's block of the new one.
     """
 
     def __init__(self, graph, cfg: SSSPConfig = SP4_CONFIG,

@@ -36,6 +36,10 @@ Besides cold solves the engine runs:
     ``_round_shared`` with ``warm=True`` un-fix any fixed vertex the
     relax still improves.
 
+  * the legacy single-source entry points ``run_sssp`` (segment),
+    ``run_sssp_ell`` (B3 and B4) and ``run_sssp_traced``, eager segment
+    rounds recording a per-round trace as host arrays;
+
   * the legacy frontier branch of ``_round`` (the bidirectional pair):
     each lane relaxes only the out-edges of its own compacted buffer
     ``f_idx`` [B, cap] through B1, one launch a lane, while inWeight_nf
@@ -110,6 +114,7 @@ class SSSPResult:
     target: int | None = None          # the goal of a targeted solve
     edges_relaxed: int | None = None   # frontier backend only
     host_syncs: int | None = None      # device->host reads of the solve
+    trace: list | None = None          # run_sssp_traced: one dict a round
     partial: bool = False              # early-exited: only fixed vertices
     #   carry exact distances (dist[target] always does); path_to(target)
     #   stays exact
@@ -524,7 +529,9 @@ def _round(g: Graph | GraphStack, cfg: SSSPConfig, state: SSSPState,
     relax that round, as the reference's ``lax.cond`` does lane by lane
     under vmap.  ``edges`` meters the out-degrees of the live buffer
     slots (``e_pad`` on a dense round), and the end of the round
-    compacts the next buffer from the vertices whose offers are new."""
+    compacts the next buffer from the vertices whose offers are new.
+    Prims with ``relax2`` (the distributed backend) take the dense relax
+    and inWeight_nf from one fused call."""
     D, C, fixed = state.D, state.C, state.fixed
     use_frontier = (prims.relax_frontier is not None
                     and state.f_idx is not None)
@@ -548,9 +555,12 @@ def _round(g: Graph | GraphStack, cfg: SSSPConfig, state: SSSPState,
                                   prims.relax(D, relax_src), D_relax)
             sparse = torch.where(overflow, g.e_pad, sparse)
         edges = edges + sparse
+        in_w_nf = prims.in_weight_nf(~fixed) if need_inw else None
+    elif need_inw and prims.relax2 is not None:
+        D_relax, in_w_nf = prims.relax2(D, relax_src, ~fixed)
     else:
         D_relax = prims.relax(D, relax_src)
-    in_w_nf = prims.in_weight_nf(~fixed) if need_inw else None
+        in_w_nf = prims.in_weight_nf(~fixed) if need_inw else None
     if warm:
         improved = fixed & (D_relax < D)
         fixed = fixed & ~improved
@@ -639,6 +649,86 @@ def _solve(g: Graph, cfg: SSSPConfig, sources: torch.Tensor,
         return _solve_frontier(g, cfg, sources, prims, sync, C0, targets)
     return _loop(g, cfg, _init_state(g, sources, C0), prims, sync,
                  cfg.max_rounds or g.n + 2, targets)
+
+
+# ---------------------------------------------------------------------------
+# Legacy single-source entry points
+# ---------------------------------------------------------------------------
+
+def _source_tensor(g: Graph, source: int) -> torch.Tensor:
+    """int64[1] on ``g``'s device, made by a fill (no host copy)."""
+    if not 0 <= int(source) < g.n:
+        raise ValueError(f"source vertex {source} out of range [0, {g.n})")
+    return torch.full((1,), int(source), dtype=torch.int64, device=g.device)
+
+
+def _run_one(g: Graph, cfg: SSSPConfig, source: int,
+             prims: backends.Primitives) -> SSSPResult:
+    sync = SyncCounter()
+    state = _solve(g, cfg, _source_tensor(g, source), prims, sync)
+    meta = sync.read(torch.cat([state.round, state.fixed_by[0]]))
+    return SSSPResult(
+        dist=state.D[0], C=state.C[0], fixed=state.fixed[0],
+        rounds=int(meta[0]), fixed_by=_fixed_by_dict(meta[1:]),
+        source=int(source), graph=g, host_syncs=sync.count)
+
+
+def run_sssp(g: Graph, source: int = 0,
+             cfg: SSSPConfig = SP4_CONFIG) -> SSSPResult:
+    """One source through the dense segment round (B = 1).  Compatibility
+    entry point: ``Solver`` keeps the layouts across sources and batches
+    them."""
+    return _run_one(g, cfg, source, backends.segment_prims(g))
+
+
+def run_sssp_ell(g: Graph, ell, source: int = 0,
+                 cfg: SSSPConfig = SP4_CONFIG) -> SSSPResult:
+    """One source through the ELL round: every relax, inWeight_nf and
+    Eqn-(1) reduction one call of the fused relax (B3, three a round
+    under SP4), both minima one masked-min pair (B4) — the kernels on
+    the card, their plain versions on the CPU."""
+    return _run_one(g, cfg, source, backends.ell_prims(g, ell))
+
+
+def run_sssp_traced(g: Graph, source: int = 0,
+                    cfg: SSSPConfig = SP4_CONFIG,
+                    max_rounds: int | None = None) -> SSSPResult:
+    """Eager segment rounds at B = 1 recording a per-round trace: one dict
+    a round with the reference's keys (``round``, ``n_fixed``,
+    ``fixed_by_round``, ``minD``, and ``D``/``C`` after and
+    ``prev_D``/``prev_C`` before the round as numpy arrays), for the
+    bounds invariants C <= cost <= D, C rising and D falling.  It reads
+    the host every round by design, three reads a round (the predicate,
+    D with C, the fixed mask with the counts), all in ``host_syncs``."""
+    n = g.n
+    prims = backends.segment_prims(g)
+    sync = SyncCounter()
+    state = _init_state(g, _source_tensor(g, source))
+    limit = max_rounds or cfg.max_rounds or n + 1
+    D, C = sync.read_numpy(torch.stack([state.D[0], state.C[0]]))
+    prev_fb = np.zeros(5, np.int64)
+    trace = []
+    while sync.read(_cond(state, limit)[0]):
+        state = _round(g, cfg, state, prims)
+        prev_D, prev_C = D, C
+        D, C = sync.read_numpy(torch.stack([state.D[0], state.C[0]]))
+        ints = sync.read_numpy(torch.cat([state.fixed[0].to(torch.int32),
+                                          state.fixed_by[0], state.round]))
+        fixed, fb = ints[:n].astype(bool), ints[n:n + 5].astype(np.int64)
+        trace.append(dict(
+            round=int(ints[n + 5]),
+            n_fixed=int(fixed.sum()),
+            fixed_by_round={r: int(c) for r, c in
+                            zip(_RULE_ORDER, fb - prev_fb)},
+            minD=float(np.min(np.where(~fixed & (prev_D < np.inf), prev_D,
+                                       np.inf), initial=np.inf)),
+            D=D, C=C, prev_D=prev_D, prev_C=prev_C))
+        prev_fb = fb
+    return SSSPResult(
+        dist=state.D[0], C=state.C[0], fixed=state.fixed[0],
+        rounds=trace[-1]["round"] if trace else 0,
+        fixed_by=_fixed_by_dict(prev_fb), trace=trace, source=int(source),
+        graph=g, host_syncs=sync.count)
 
 
 # ---------------------------------------------------------------------------

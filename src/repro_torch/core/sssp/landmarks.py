@@ -109,6 +109,7 @@ class LandmarkIndex:
              Else the index owns one.
     cfg/backend/seed: engine config, backend and selection RNG seed of
              the owned solvers.
+    group:   the process group of the owned solvers' distributed backend.
 
     ``seed``/``seed_batch`` return ``C0`` for ``Solver.solve(s,
     target=t, C0=...)`` on the index's device, or None when stale tables
@@ -117,7 +118,8 @@ class LandmarkIndex:
 
     def __init__(self, graph, k: int = 8, *, cfg: SSSPConfig = SP4_CONFIG,
                  backend: str = "segment", seed: int = 0,
-                 solver: DynamicSolver | None = None, device=None):
+                 solver: DynamicSolver | None = None, device=None,
+                 group=None):
         if isinstance(graph, HostGraph):
             graph = graph.to_device(resolve_device(device))
         if not isinstance(graph, Graph):
@@ -128,9 +130,9 @@ class LandmarkIndex:
         self.k = max(1, min(int(k), graph.n))
         self._shared = solver is not None
         self._fwd = solver if solver is not None else DynamicSolver(
-            graph, cfg, backend, device=graph.device)
+            graph, cfg, backend, device=graph.device, group=group)
         self._rev = DynamicSolver(graph.reverse(), cfg, backend,
-                                  device=graph.device)
+                                  device=graph.device, group=group)
         # forward edge i sits at row rev_perm[i] of the reverse edge list
         # (reverse() re-sorts stably by the new dst, the forward src)
         e = graph.e

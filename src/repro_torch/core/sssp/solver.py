@@ -11,7 +11,8 @@ the move to the device — so answering a source is one engine run:
     once its target is certified; the result is stamped ``partial``),
     and ``C0=`` seeds the lower bounds, e.g. from a ``LandmarkIndex``;
   * backends are instances of the primitives protocol (backends.py), so
-    "segment", "ell"/"pallas" and "frontier" share the round body.
+    "segment", "ell"/"pallas", "frontier" and "distributed" share the
+    round body.
 
 The solver runs on CUDA unless ``device="cpu"`` is passed; without a card
 it raises rather than falling back.
@@ -25,12 +26,12 @@ import torch
 
 from repro_torch.core.graph import (CsrGraph, EllGraph, Graph, HostGraph,
                                     build_ell, build_graph, resolve_device)
-from repro_torch.core.sssp import backends
+from repro_torch.core.sssp import backends, distributed
 from repro_torch.core.sssp.engine import (SP4_CONFIG, SSSPConfig,
                                           SSSPResult, SyncCounter,
                                           _fixed_by_dict, _solve)
 
-BACKENDS = ("auto", "segment", "ell", "pallas", "frontier")
+BACKENDS = ("auto", "segment", "ell", "pallas", "frontier", "distributed")
 
 
 @dataclasses.dataclass
@@ -91,28 +92,36 @@ class Solver:
     graph:    a ``Graph`` (moved to ``device``), a ``HostGraph``, or an
               ``(n, src, dst, w)`` tuple of host arrays.
     cfg:      engine configuration (rules / label-correcting / c-prop).
-    backend:  "auto" | "segment" | "ell" | "pallas" | "frontier".  "auto"
-              picks "pallas" when ``cfg.use_pallas``, else "frontier" for
-              thin-wavefront graphs, else "segment".  "ell" and "pallas"
-              are one backend here: the ELL kernels on CUDA, their plain
-              versions on the CPU.
+    backend:  "auto" | "segment" | "ell" | "pallas" | "frontier" |
+              "distributed".  "auto" picks "pallas" when
+              ``cfg.use_pallas``, else "frontier" for thin-wavefront
+              graphs, else "segment".  "ell" and "pallas" are one backend
+              here: the ELL kernels on CUDA, their plain versions on the
+              CPU.  "distributed" shards the edge list over the ranks of
+              ``group`` (``core/sssp/distributed.py``): every rank builds
+              the same Solver and makes the same calls; ``graph`` is then
+              the shard-padded whole graph, which every rank keeps.
     ell:      pre-built ``EllGraph`` for ell/pallas (else built here).
     frontier_cap: compacted-buffer size of the frontier backend (rounded
               up to a power of two; a round whose union frontier outgrows
               it runs the dense relax, bitwise the same).
     device:   where the solve runs; CUDA unless given.
+    group:    the distributed backend's process group (default: the
+              default group if initialized, else a world of one);
+              ``rank``/``world`` report it and ``collectives`` counts its
+              all-reduces.
     """
 
     def __init__(self, graph, cfg: SSSPConfig = SP4_CONFIG,
                  backend: str = "auto", *, ell: EllGraph | None = None,
                  max_deg_cap: int | None = None,
-                 frontier_cap: int | None = None, device=None):
-        if backend == "distributed":
-            raise NotImplementedError(
-                "the distributed backend is not ported yet (ROADMAP A10)")
+                 frontier_cap: int | None = None, device=None, group=None):
         if backend not in BACKENDS:
             raise ValueError(f"unknown backend {backend!r}; "
                              f"expected one of {BACKENDS}")
+        if group is not None and backend != "distributed":
+            raise ValueError(f"group= is the distributed backend's; "
+                             f"backend is {backend!r}")
         device = resolve_device(device)
         if isinstance(graph, HostGraph):
             graph = graph.to_device(device)
@@ -142,8 +151,14 @@ class Solver:
         self.ell: EllGraph | None = None
         self.csr: CsrGraph | None = None
         self.frontier_cap = 0
+        self.group, self.rank, self.world = None, 0, 1
+        self.collectives = backends.CollectiveCounter()
 
-        if backend in ("ell", "pallas"):
+        if backend == "distributed":
+            self.group, self.rank, self.world = distributed.resolve_group(
+                group)
+            self.graph = distributed.shard_graph_edges(graph, self.world)
+        elif backend in ("ell", "pallas"):
             if ell is None:
                 e = graph.e
                 ell = build_ell(graph.n, graph.src[:e].cpu().numpy(),
@@ -156,12 +171,16 @@ class Solver:
             self.frontier_cap = _next_pow2(
                 _default_frontier_cap(graph.n) if frontier_cap is None
                 else max(1, int(frontier_cap)))
-        self.prims = self._make_prims(graph, self.ell, self.csr)
+        self.prims = self._make_prims(self.graph, self.ell, self.csr)
 
     def _make_prims(self, g: Graph, ell: EllGraph | None,
                     csr: CsrGraph | None) -> backends.Primitives:
         """The backend's primitives over these layouts (a DynamicSolver
-        rebuilds them on each mutated graph)."""
+        rebuilds them on each mutated graph; the distributed backend
+        then takes this rank's block of the mutated graph)."""
+        if self.backend == "distributed":
+            return distributed.sharded_prims(g, self.group, self.rank,
+                                             self.world, self.collectives)
         if csr is not None:
             return backends.frontier_prims(g, csr, self.frontier_cap)
         if ell is not None:

@@ -22,6 +22,9 @@ index and routes scalar-target queries through seeded targeted solves;
 ``--planner`` turns on the cost-based wave planner, ``--bidirectional``
 attaches the meet-in-the-middle solver, and ``--reselect-threshold T``
 re-selects landmarks when seed tightness drops below T.
+``--backend distributed`` shards the edges over the default process
+group when the caller initialized one (every rank runs the launcher
+with the same flags), else over a world of one.
 
 ``main(argv)`` returns the exit code, so the launcher can also be run in
 process.

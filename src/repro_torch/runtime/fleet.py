@@ -11,16 +11,14 @@ the tick's misses over all members in one ``[F, B]`` ``solve_batch``.
 Chaos from ``distributed.fault.FaultInjector``:
 
   * ``("dropout", member)``: the device state is lost.  The driver
-    restores the last snapshot (the weights and tracked solves, cloned
-    on the device), clears the caches (their stamps would alias the
-    rolled-back version) and replays the dropped ticks.  Tick work is a
-    function of ``(seed, tick, member)`` alone, so the run ends bitwise
-    equal to a fault-free one.
+    restores the last checkpoint (the weights, the tracked solves and
+    the tick: on disk through a ``CheckpointManager``, else a snapshot
+    cloned on the device), clears the caches (their stamps would alias
+    the rolled-back version) and replays the dropped ticks.  Tick work
+    is a function of ``(seed, tick, member)`` alone, so the run ends
+    bitwise equal to a fault-free one.
   * ``("straggler", delay_ms)``: one virtual host stalls a tick; its
     ``StepTimer`` records the stall and ``detect_stragglers`` flags it.
-
-On-disk checkpoints (``manager=``) wait for the port of ``checkpoint/``
-(ROADMAP A14).
 """
 from __future__ import annotations
 
@@ -28,6 +26,7 @@ import time
 from collections import OrderedDict
 
 import numpy as np
+import torch
 
 from repro_torch.core.sssp.dynamic import make_delta
 from repro_torch.core.sssp.fleet import FleetSolver, GraphFleet, stack_deltas
@@ -77,8 +76,9 @@ class CongestionReplay:
     hot_frac: probability that a query's source is from the hot set.
     cache_size: LRU capacity of each member's source cache.
     fault: a ``FaultInjector`` or a ``{tick: (kind, arg)}`` schedule.
-    manager: on-disk checkpoints; not ported yet (raises).
-    ckpt_every: snapshot cadence in ticks.
+    manager: a ``checkpoint.CheckpointManager``: checkpoints go to disk
+        as step ``tick + 1`` (None: an in-memory snapshot).
+    ckpt_every: checkpoint cadence in ticks.
     straggler_z: z-score threshold of ``detect_stragglers``.
     """
 
@@ -87,11 +87,6 @@ class CongestionReplay:
                  hot_frac: float = 0.5, cache_size: int = 32,
                  fault=None, manager=None, ckpt_every: int = 4,
                  straggler_z: float = 3.0):
-        if manager is not None:
-            raise NotImplementedError(
-                "on-disk fleet checkpoints wait for the port of "
-                "checkpoint/ (ROADMAP A14); manager=None keeps an "
-                "in-memory snapshot")
         if not isinstance(solver, FleetSolver):
             solver = FleetSolver(solver if isinstance(solver, GraphFleet)
                                  else GraphFleet.stack(solver))
@@ -106,6 +101,7 @@ class CongestionReplay:
         if fault is not None and not isinstance(fault, FaultInjector):
             fault = FaultInjector(fault)
         self.fault = fault
+        self.manager = manager
         self.ckpt_every = max(1, int(ckpt_every))
         self.straggler_z = float(straggler_z)
 
@@ -133,17 +129,32 @@ class CongestionReplay:
         self.stats["solves"] += F
         self._checkpoint()           # tick 0 baseline
 
-    # -- snapshot / restore ---------------------------------------------
+    # -- checkpoint / restore -------------------------------------------
+    def _state(self) -> dict:
+        state = dict(self.solver.state_dict())
+        state["tick"] = np.int32(self.tick)
+        return state
+
     def _checkpoint(self) -> None:
-        state = {k: v.clone() for k, v in self.solver.state_dict().items()}
-        self._snap = (self.tick, state)
+        state = self._state()
+        if self.manager is not None:
+            self.manager.save(self.tick + 1, state, blocking=True)
+        else:
+            self._snap = {k: v.clone() if torch.is_tensor(v) else v
+                          for k, v in state.items()}
 
     def _restore(self) -> None:
-        tick, state = self._snap
-        self.solver.load_state_dict({k: v.clone() for k, v in state.items()})
+        if self.manager is not None:
+            _, state = self.manager.restore_latest(self._state())
+        else:
+            state = {k: v.clone() if torch.is_tensor(v) else v
+                     for k, v in self._snap.items()}
+        if state is None:
+            raise RuntimeError("no checkpoint to restore")
+        self.solver.load_state_dict(state)
         self.fleet = self.solver.fleet
-        self._w = state["w"].cpu().numpy().copy()
-        self.tick = tick
+        self._w = self.fleet.g.w.cpu().numpy().copy()
+        self.tick = int(state["tick"])
         # the version rolled back: stamped entries would alias fresh ones
         for c in self._caches:
             c.clear()

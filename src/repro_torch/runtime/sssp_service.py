@@ -79,9 +79,10 @@ class Query:
 class SSSPService:
     """Continuous-batching SSSP server over one (mutable-weight) graph.
 
-    Parameters mirror :class:`Solver` (``device=`` among ``solver_kw``;
-    CUDA unless given); ``batch`` is the number of source slots per
-    solve, ``cache_sources`` bounds the LRU of solved sources.
+    Parameters mirror :class:`Solver` (``device=``, CUDA unless given,
+    and the distributed backend's ``group=`` among ``solver_kw``);
+    ``batch`` is the number of source slots per solve,
+    ``cache_sources`` bounds the LRU of solved sources.
 
     ``landmarks``: ``int k`` builds a k-landmark :class:`LandmarkIndex`
     sharing this service's DynamicSolver, a pre-built index is used
@@ -132,7 +133,8 @@ class SSSPService:
             self.landmarks = LandmarkIndex(
                 self.solver.graph, int(landmarks), cfg=self.solver.cfg,
                 backend=backend if backend != "auto" else "segment",
-                seed=landmark_seed, solver=self.solver)
+                seed=landmark_seed, solver=self.solver,
+                group=self.solver.group)
         self.refresh_landmarks = bool(refresh_landmarks)
         self.planner: WavePlanner | None = None
         if isinstance(planner, WavePlanner):

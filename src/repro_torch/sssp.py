@@ -11,7 +11,12 @@ Backends (``backend=``): "segment" (scatter-min over the dst-sorted edge
 list), "ell"/"pallas" (dense in-neighbour layout through the fused ELL
 relax and masked-min kernels), "frontier" (compacted sparse-frontier
 rounds through the scatter-min kernel; "auto" picks it for
-thin-wavefront graphs).
+thin-wavefront graphs), "distributed" (the edge list sharded over the
+ranks of a ``torch.distributed`` process group, ``group=``; the default
+group if initialized, else a world of one):
+
+    solver = sssp.Solver(graph, backend="distributed")   # on every rank
+    solver.world, solver.collectives.calls               # ranks, all-reduces
 
 Dynamic graphs (weight streams):
 
@@ -62,7 +67,10 @@ seeds, bidirectional pairs and the wave planner):
 
 or ``python -m repro_torch.launch.serve_sssp --help``.
 
-The distributed subsystem of ``repro.sssp`` is queued in ROADMAP.md.
+The legacy entry points ``run_sssp``, ``run_sssp_ell``,
+``run_sssp_traced`` (eager rounds with a per-round trace:
+``res.trace[i]["D"]``, ``["C"]``, ``["minD"]``, ...) and
+``run_sssp_distributed`` (``(D, C, fixed, rounds)``) answer one source.
 """
 from repro_torch.core.graph import (  # noqa: F401
     CsrGraph, EllGraph, Graph, HostGraph, build_csr, build_ell, build_graph)
@@ -76,9 +84,11 @@ from repro_torch.core.sssp.delta_stepping import (  # noqa: F401
 from repro_torch.core.sssp.dynamic import (  # noqa: F401
     DynamicSolver, GraphDelta, make_delta, make_delta_from_endpoints,
     random_delta)
+from repro_torch.core.sssp.distributed import (  # noqa: F401
+    run_sssp_distributed)
 from repro_torch.core.sssp.engine import (  # noqa: F401
     SP1_RULES, SP2_RULES, SP3_CONFIG, SP3_RULES, SP4_CONFIG, SSSPConfig,
-    SSSPResult)
+    SSSPResult, run_sssp, run_sssp_ell, run_sssp_traced)
 from repro_torch.core.sssp.fleet import (  # noqa: F401
     FleetBatchResult, FleetResult, FleetSolver, GraphFleet, build_fleet,
     stack_deltas)

@@ -2,9 +2,9 @@
 (``repro_torch.runtime.fleet``, ``repro_torch.distributed.fault``): a
 dropout restart ends bitwise equal to a fault-free port replay and to the
 reference's replay at the same seed (weights, tracked distances, stats);
-stragglers get flagged; ``manager=`` raises until checkpoints are ported;
-and the port's copy of ``fault.py`` answers as the reference's on the
-same inputs."""
+stragglers get flagged; and the port's copy of ``fault.py`` answers as
+the reference's on the same inputs.  The on-disk replay
+(``manager=``) is in ``test_torch_checkpoint.py``."""
 import time
 import warnings
 
@@ -84,13 +84,6 @@ def test_straggler_flagged_and_replay_stats():
     assert st["cache_hits"] > 0
     assert st["fleet_dispatches"] >= 8
     assert st["straggler_sleep_s"] == pytest.approx(0.12)
-
-
-def test_manager_raises_until_checkpoints_are_ported():
-    fleet = P.build_fleet([pgen.make("chain", 40, seed=s) for s in range(2)],
-                          device="cpu")
-    with pytest.raises(NotImplementedError, match="A14"):
-        preplay.CongestionReplay(P.FleetSolver(fleet), manager=object())
 
 
 def test_drift_and_queries_match_the_reference():

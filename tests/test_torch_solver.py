@@ -2,7 +2,7 @@
 ``dist``/``C``/``fixed``/``rounds``/``fixed_by`` against the reference
 ``Solver`` on 7 families x SP1-SP4, single and batched (non-pow-2)
 solves, checked against Dijkstra too; routing, parents and the errors
-of what is not ported yet."""
+the facade raises."""
 import numpy as np
 import pytest
 import torch
@@ -108,8 +108,10 @@ def test_parents_and_paths_match_reference():
 def test_unported_options_raise():
     _, pg = _graphs("chain", n=60)
     solver = P.Solver(pg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        P.Solver(pg, backend="distributed", device="cpu")
+    # the distributed backend is ported: it solves, at a world of one here
+    dist = P.Solver(pg, backend="distributed", device="cpu")
+    assert dist.world == 1
+    assert torch.equal(dist.solve(3).dist, solver.solve(3).dist)
     with pytest.raises(ValueError, match="out of range"):
         solver.solve(pg.n)
     with pytest.raises(ValueError, match="unknown backend"):
