@@ -47,7 +47,7 @@ Phases, each failing the run (non-zero exit) if it fails:
     bitwise ``[p2p]``'s, every path real edges, B1 launched twice a
     frontier round; then ``update`` with ``[dynamic]``'s delta refreshing
     2 grid and 8 gnp pairs warm, bitwise cold solves and near scipy;
-    ``[fleet]``: a segment ``FleetSolver`` over 8 grids of side 512
+    ``[fleet]``: a segment ``FleetSolver`` over 8 grids of side 256
     (``solve``, ``solve_batch`` [8, 8], stacked deltas, ``update``,
     ``resolve``), every member bitwise its per-graph solve, host reads
     rounds + 2 whatever F; a frontier fleet of 2 members; a
@@ -92,7 +92,23 @@ Phases, each failing the run (non-zero exit) if it fails:
     and each CIN layer of the forwards against its plain version in
     float64;
  7. attention entry point: one ``ops.flash_attention`` call at a
-    qwen3-32b layer's shape, its launches counted.
+    qwen3-32b layer's shape, its launches counted;
+ 8. ``[lm]``, LM serving through ``repro_torch.runtime.serve_loop.
+    BatchServer`` (batched prefill, then decode steps): qwen3-32b at full
+    width (d 5,120, 64/8 heads, hd 128, d_ff 25,600, vocab 151,936, bf16)
+    cut to 4 layers, 8 prompts of 1,024 tokens, 32 greedy tokens; then
+    deepseek-moe-16b at full width cut to 2 layers, 4 prompts of 256, 8
+    tokens (the MoE dispatch on the card).  Each served twice, counted
+    (one B6 launch a layer a prefill, the plain attention never called;
+    the same tokens both times), its prefill and decode-step times logged
+    beside their bounds (``lm_work``); B6 held against its plain version
+    on the prefill's own layer-0 q/k/v (bf16 tolerance; the kernel phase
+    times B6 at that shape); the batched prefill's logits and cache
+    against S decode steps of the same prompts (``PREFILL_TOL``; MoE
+    routing flips excused on at most ``FLIP_SHARE`` of a layer's
+    tokens).  The qwen3, deepseek and llama4 smoke configs in f32, card
+    against the port's CPU run: greedy tokens equal, prefill logits
+    within 2e-3.  Then the ``serve`` launcher's ``main`` on the card.
 
 Each phase prints its wall time.
 
@@ -131,7 +147,8 @@ FRONTIER_CAP = 4096           # the Solver's default cap at n = 2^20
 PARITY_N = 1 << 13            # card vs CPU parity graphs (sized for the
 #   script's time limit: its runs are host-bound, ~linear in rounds)
 PARITY_HUB_N = 1 << 9         # power_law's frontier fleet (see fleet_parity)
-FLEET_SIDE = 512              # [fleet]: 8 grids, n = 2^18 each
+FLEET_SIDE = 256              # [fleet]: 8 grids, n = 2^16 each (sized for
+#   the script's time limit: side 512 took ~150 s of the script's time)
 REPLAY_SIDE = 128             # [fleet] congestion replay: 8 grids, n = 2^14
 # a landmark seed is a difference of two f32 path sums, each of which may
 # be off by about (hops x 6e-8) of its value: a seed may pass the f32
@@ -140,6 +157,8 @@ SEED_TOL = 1e-4
 CIN_SHAPE = dict(B=512, M=39, D=10, K=200)    # serve_p99, paper widths
 # one qwen3-32b attention layer: 64 query heads, 8 KV heads, head_dim 128
 ATTN_SHAPE = dict(B=1, H=64, H_KV=8, S=4096, d=128)
+# the same layer as [lm]'s qwen3-32b prefill gives it to B6 (LM_SHAPE)
+LM_ATTN_SHAPE = dict(B=8, H=64, H_KV=8, S=1024, d=128)
 # attention against its plain version: the reference's f32 tolerance; in
 # bf16 two bf16 steps (the outputs differ only in rounding of the f32
 # result), inside the reference's 2e-2
@@ -249,7 +268,8 @@ def record(rec, name, shape, ms, plain, lib, dev, b_ms, b_by, **extra):
     """One timed shape of a kernel, appended to its ``shapes``: event and
     device times of the kernel, its plain version and the library call,
     and the bound.  The kernel's own keys take the shape timed last, the
-    main path's (B = 8, CIN layer 2, bf16 attention)."""
+    main path's (B = 8, CIN layer 2, bf16 attention at the shape of the
+    ``[lm]`` qwen3-32b prefill's layer)."""
     r = rec.setdefault(name, {"max_abs_err": 0.0, "shapes": []})
     r["shapes"].append(dict(
         shape=shape, ms=ms, device_ms=dev["kernel"], plain_ms=plain,
@@ -703,10 +723,9 @@ def kernel_phase(torch, pt):
     return rec
 
 
-def attn_inputs(torch, dtype, seed: int = 0):
+def attn_inputs(torch, dtype, seed: int = 0, a=ATTN_SHAPE):
     """q [B, 64, S, 128] and k, v drawn for 8 KV heads and repeated to 64,
     as a grouped-query caller hands them to ``ops.flash_attention``."""
-    a = ATTN_SHAPE
     g = torch.Generator(device=DEVICE).manual_seed(seed)
     rep = a["H"] // a["H_KV"]
 
@@ -819,6 +838,24 @@ def model_kernel_phase(torch, rec):
               peak, peak_name,
               BF16_OPS_PER_S if dtype == torch.float32 else None)
         del q, k, v
+    # the [lm] qwen3-32b prefill's layer, bf16: the main path's shape,
+    # timed last (the kernel's own keys); [lm] holds B6 on the prefill's
+    # own q/k/v
+    a = LM_ATTN_SHAPE
+    q, k, v = attn_inputs(torch, torch.bfloat16, seed=2, a=a)
+    what = (f"bf16 B={a['B']} H={a['H']} S={a['S']} d={a['d']} causal "
+            f"([lm] qwen3-32b prefill layer)")
+    err = held("flash_attention", flash_attention(q, k, v, causal=True),
+               ref.flash_attention_ref(q, k, v, causal=True),
+               **ATTN_TOL["bfloat16"], what=what)
+    timed("flash_attention", what, err,
+          lambda: flash_attention(q, k, v, causal=True),
+          lambda: ref.flash_attention_ref(q, k, v, causal=True),
+          lambda: sdpa(q, k, v, is_causal=True), "sdpa",
+          4 * q.numel() * q.element_size(),
+          2.0 * a["S"] ** 2 * a["d"] * a["H"] * a["B"], BF16_OPS_PER_S,
+          "dense bf16")
+    del q, k, v
     for dtype in (torch.float32, torch.bfloat16):
         for (BH, S, d, causal) in ((3, 256, 64, False), (2, 128, 32, True),
                                    (2, 384, 100, True)):
@@ -1631,14 +1668,15 @@ def bidi_phase(torch, pt, p2p, dyn):
 
 
 def fleet_phase(torch, pt):
-    """Graph fleets: F = 8 grids of side 512 (seeds 0-7; n = 2^18 and
-    1,046,528 edges each).  A segment ``FleetSolver``'s ``solve`` (one
-    source a member, seed 2024) and ``solve_batch`` [8, 8], every member
-    bitwise a per-graph ``Solver(backend="segment")`` solve, host reads
-    rounds + 2 whatever F; ``update`` with stacked deltas of 128 + 32 f
-    random edges a member (x uniform[0.5, 2.0]) and ``resolve``, bitwise a
-    cold solve of each mutated member; a frontier fleet of the first 2
-    members, bitwise the segment fleet's rows, B2 launched.  Then
+    """Graph fleets: F = 8 grids of side ``FLEET_SIDE`` (seeds 0-7; at
+    256, n = 2^16 and 261,120 edges each).  A segment ``FleetSolver``'s
+    ``solve`` (one source a member, seed 2024) and ``solve_batch`` [8,
+    8], every member bitwise a per-graph ``Solver(backend="segment")``
+    solve, host reads rounds + 2 whatever F; ``update`` with stacked
+    deltas of 128 + 32 f random edges a member (x uniform[0.5, 2.0]) and
+    ``resolve``, bitwise a cold solve of each mutated member; a frontier
+    fleet of the first 2 members, bitwise the segment fleet's rows, B2
+    launched.  Then
     ``CongestionReplay`` over 8 grids of side 128 for 6 ticks with a
     dropout at tick 3 and a straggler at tick 4, and again with a
     dropout and on-disk checkpoints (``CheckpointManager``), each bitwise
@@ -2585,15 +2623,15 @@ def profile_phase(torch, pt, rounds: int = 400):
     bidi = sssp.BidirectionalSolver(grid, cfg)
     fleet = sssp.FleetSolver(sssp.build_fleet(
         [gen.grid(FLEET_SIDE, seed=f) for f in range(8)]), cfg)
+    fleet_what = f"fleet segment (8 grids side {FLEET_SIDE})"
     extra = {"grid bidi frontier": (("solve", lambda: bidi.solve(
         1, grid.n - 1)),),
-        "fleet segment (8 grids side 512)": (
-            ("solve", lambda: fleet.solve(list(range(1, 17, 2)))),)}
+        fleet_what: (("solve", lambda: fleet.solve(list(range(1, 17, 2)))),)}
     for what, g, be in (("grid frontier", grid, "auto"),
                         ("gnp segment", gnp, "auto"),
                         ("gnp pallas", gnp, "pallas"),
                         ("grid bidi frontier", None, None),
-                        ("fleet segment (8 grids side 512)", None, None)):
+                        (fleet_what, None, None)):
         if g is None:
             kinds = extra[what]
         else:
@@ -2813,6 +2851,407 @@ def attention_entry_phase(torch):
     return lc
 
 
+# ---------------------------------------------------------------------------
+# phase 8: LM serving
+# ---------------------------------------------------------------------------
+
+LM_LAYERS = 4                 # [lm] qwen3-32b at full width, 4 of 64 layers
+LM_SHAPE = dict(B=8, S=1024, new=32)
+MOE_LAYERS = 2                # [lm] deepseek-moe-16b at full width, 2 of 28
+MOE_SHAPE = dict(B=4, S=256, new=8)
+LM_SMOKE_ARCHS = ("qwen3-32b", "deepseek-moe-16b",
+                  "llama4-maverick-400b-a17b")
+SMOKE_PROMPTS = (40, 33, 17, 9)   # ragged, left-padded into one group
+SMOKE_NEW = 16
+# the batched bf16 prefill against S decode steps of the same prompt: the
+# two orders round the residual stream's bf16 values differently at every
+# layer.  The logits have std ~1 and |max| ~4-5, where one bf16 step is
+# 0.0156; a CPU run at reduced widths (4 layers, d 512) gave a max error
+# of 0.039 and a mean of 0.006, qwen3-32b's [lm] run on the H100 0.0625
+# and 0.0098.  Allowed: |a - b| <= 0.15 + 0.02 |b| and a mean of 0.025;
+# a wrong position, mask or cache slot moves logits by ~1
+PREFILL_TOL = dict(rtol=2e-2, atol=1.5e-1)
+PREFILL_MEAN_TOL = 2.5e-2
+# MoE routing flips between the two paths (prefill_vs_steps) allowed on
+# at most this share of a layer's tokens (a token's first flip; up to
+# 3.5% of a layer's 1,024 tokens in deepseek-moe-16b's [lm] run on the
+# H100, 2.9% at reduced widths on the CPU)
+FLIP_SHARE = 0.1
+
+
+def lm_work(cfg, B: int, S: int):
+    """The least bytes and operations of a bf16 prefill of ``B`` prompts
+    of ``S`` tokens and of one decode step at position S: each weight
+    read once (the embedding table only gathered; of a MoE layer's
+    experts, all in the prefill and at most B * top_k in a step), the
+    cache written once and read once a step, and 2 operations a
+    multiply-add: the products of the tokens' active weights, the causal
+    attention, the head at the last position only.  Returns ((bytes,
+    ops) of the prefill, (bytes, ops) of a step)."""
+    d, hd, H, Hkv, L = (cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads,
+                        cfg.n_layers)
+    elt = 2
+    attn = d * H * hd + 2 * d * Hkv * hd + H * hd * d
+    act, weights, weights_step = 0, 0, 0
+    for i in range(L):
+        if cfg.layer_is_moe(i):
+            E, f, K = cfg.moe.n_experts, cfg.moe.d_ff_expert, cfg.moe.top_k
+            shared = 3 * d * f * cfg.moe.n_shared
+            act += attn + d * E + 3 * d * f * K + shared
+            weights += attn + d * E + 3 * d * f * E + shared
+            weights_step += attn + d * E + 3 * d * f * min(E, B * K) + shared
+        else:
+            act += attn + 3 * d * cfg.d_ff
+            weights += attn + 3 * d * cfg.d_ff
+            weights_step += attn + 3 * d * cfg.d_ff
+    head = d * cfg.vocab
+    kv = 2 * L * B * Hkv * hd * elt                # bytes a position
+    pre_ops = (2.0 * B * S * act + 2.0 * B * H * S * S * hd * L
+               + 2.0 * B * head)
+    pre_bytes = (elt * (weights + head + B * S * d) + kv * S
+                 + 4 * B * cfg.vocab)
+    step_ops = 2.0 * B * (act + head) + 4.0 * B * H * (S + 1) * hd * L
+    step_bytes = (elt * (weights_step + head + B * d) + kv * (S + 1)
+                  + 4 * B * cfg.vocab)
+    return (pre_bytes, pre_ops), (step_bytes, step_ops)
+
+
+def watch_plain_attention():
+    """Wraps ``ref.flash_attention_ref`` (the plain version B6's wrapper
+    takes for CPU tensors) to count its calls; returns the count list
+    and the undo."""
+    from repro_torch.kernels import ref
+    real = ref.flash_attention_ref
+    calls = []
+
+    def counting(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+    ref.flash_attention_ref = counting
+
+    def undo():
+        ref.flash_attention_ref = real
+    return calls, undo
+
+
+def served(torch, server, reqs, what):
+    """``server.generate(reqs)`` once, counted, with the plain attention
+    watched: (host seconds, launch counts)."""
+    calls, undo = watch_plain_attention()
+    try:
+        t0 = time.perf_counter()
+        _, lc = counted(torch, lambda: server.generate(reqs))
+        dt = time.perf_counter() - t0
+    finally:
+        undo()
+    check(not calls, f"[lm] {what}: the plain attention ran {len(calls)} "
+                     f"times on the card's path")
+    return dt, lc
+
+
+def watch_routing(torch):
+    """Wraps ``transformer.moe_ffn`` to record, for each call, every
+    token's top-k expert set (sorted) and the router's probability gap
+    between its k-th and (k+1)-th choice; returns the record list and
+    the undo."""
+    from repro_torch.models import transformer as tfm
+    real = tfm.moe_ffn
+    calls = []
+
+    def watching(params, x, cfg):
+        probs = torch.softmax(x.float() @ params["router"], dim=-1)
+        top = torch.topk(probs, cfg.top_k + 1, dim=-1)
+        calls.append((top.indices[..., :cfg.top_k].sort(-1).values,
+                      top.values[..., -2] - top.values[..., -1]))
+        return real(params, x, cfg)
+    tfm.moe_ffn = watching
+
+    def undo():
+        tfm.moe_ffn = real
+    return calls, undo
+
+
+def prefill_vs_steps(torch, params, cfg, toks, max_seq):
+    """The batched bf16 prefill against S decode steps from an empty
+    cache on the same prompts: the last logits and every cache slot
+    within ``PREFILL_TOL`` (and the logits' mean error within
+    ``PREFILL_MEAN_TOL``).
+
+    A MoE router can order two experts differently on the two paths
+    when their probabilities tie within bf16 rounding (a routing flip):
+    that token's layer output then differs by O(1).  The router is
+    watched on both paths; a flipped token's cache rows in the later
+    layers and, if it is a prompt's last token, its logits row are
+    excused, provided flips are rare (at most ``FLIP_SHARE`` of the
+    tokens of any layer flip there first).  The largest probability gap
+    between a flipped token's k-th and (k+1)-th expert is logged."""
+    from repro_torch.models import transformer as tfm
+    B, S = toks.shape
+    calls, undo = watch_routing(torch)
+    try:
+        logits, cache = tfm.prefill(params, toks, cfg, max_seq)
+        batched = list(calls)
+        calls.clear()
+        t0 = time.perf_counter()
+        steps = tfm.init_cache(cfg, B, max_seq, device=toks.device)
+        for t in range(S):
+            step_logits, steps = tfm.decode_step(params, steps, toks[:, t],
+                                                 cfg)
+        torch.cuda.synchronize()
+        t_steps = time.perf_counter() - t0
+    finally:
+        undo()
+    moe_layers = [i for i in range(cfg.n_layers) if cfg.layer_is_moe(i)]
+    flipped = torch.zeros((B, S), dtype=torch.bool, device=toks.device)
+    excused, n_flips, worst_gap, worst_share = [], 0, 0.0, 0.0
+    for i in range(cfg.n_layers):
+        excused.append(flipped.clone())     # rows of layer i's cache
+        if i in moe_layers:
+            j = moe_layers.index(i)
+            sets = torch.cat([calls[t * len(moe_layers) + j][0]
+                              for t in range(S)], dim=1)
+            gaps = torch.cat([calls[t * len(moe_layers) + j][1]
+                              for t in range(S)], dim=1)
+            # a token already flipped in an earlier layer has another
+            # input here: only its first flip counts
+            flip = (batched[j][0] != sets).any(-1) & ~flipped
+            n_flips += int(flip.sum())
+            worst_share = max(worst_share, float(flip.float().mean()))
+            if flip.any():
+                worst_gap = max(worst_gap, float(torch.maximum(
+                    batched[j][1], gaps)[flip].max()))
+            flipped |= flip
+    rows_ok = ~flipped[:, -1]
+    diff = (logits - step_logits).abs()[rows_ok]
+    bad_rows = 0
+    ok = bool(torch.allclose(logits[rows_ok], step_logits[rows_ok],
+                             **PREFILL_TOL))
+    ok &= diff.numel() == 0 or float(diff.mean()) <= PREFILL_MEAN_TOL
+    cache_err = 0.0
+    for i in range(cfg.n_layers):
+        keep = ~excused[i]
+        for a, b in ((cache.k[i], steps.k[i]), (cache.v[i], steps.v[i])):
+            a, b = a[:, :S][keep].float(), b[:, :S][keep].float()
+            cache_err = max(cache_err, float((a - b).abs().max()))
+            close = torch.isclose(a, b, **PREFILL_TOL).flatten(1).all(1)
+            bad_rows += int((~close).sum())
+    ok &= bad_rows == 0 and worst_share <= FLIP_SHARE
+    same_top = float((logits.argmax(-1) == step_logits.argmax(-1))
+                     .float().mean())
+    log(f"    batched prefill vs {S} decode steps ({t_steps:.2f} s): "
+        f"logits max |err| {float(diff.max()) if diff.numel() else 0:.4f},"
+        f" mean {float(diff.mean()) if diff.numel() else 0:.5f} (|max "
+        f"logit| {float(step_logits.abs().max()):.3f}; {int(rows_ok.sum())}"
+        f" of {B} rows held), cache max |err| {cache_err:.4f}, same argmax "
+        f"{same_top:.3f}; first routing flips {n_flips} (largest share "
+        f"of a layer's tokens {worst_share:.4f}, largest gap "
+        f"{worst_gap:.2e}; "
+        f"rtol {PREFILL_TOL['rtol']:g}, atol {PREFILL_TOL['atol']:g}, mean "
+        f"{PREFILL_MEAN_TOL:g}, share {FLIP_SHARE:g}: "
+        f"{'ok' if ok else 'FAILED'})")
+    check(ok, f"[lm] {cfg.name}: the batched prefill differs from the "
+              f"decode steps")
+
+
+def lm_full_width(torch, cfg, shape, rec):
+    """One full-width bf16 config on the card: random weights (seed 0),
+    ``BatchServer`` over B prompts of S tokens (numpy seed 0), greedy,
+    served twice (the first request and a warm one, the same tokens),
+    each counted (one B6 launch a layer, the plain attention never
+    called); then prefill and decode-step times against their bounds, B6
+    on the prefill's own layer-0 q/k/v against its plain version (the
+    kernel phase times it at that shape, ``LM_ATTN_SHAPE``), and the
+    batched prefill against S decode steps of the same prompts
+    (``prefill_vs_steps``)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attn import flash_attention
+    from repro_torch.models import attention, transformer as tfm
+    from repro_torch.models.common import rope_frequencies
+    from repro_torch.runtime.serve_loop import BatchServer, Request
+    dev = torch.device(DEVICE)
+    B, S, new = shape["B"], shape["S"], shape["new"]
+    max_seq = S + new + 8
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    torch.cuda.synchronize()
+    n_par = cfg.param_count()
+    log(f"  {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}, hd {cfg.hd}, vocab {cfg.vocab:,}, "
+        f"{n_par / 1e9:.3f} B parameters ({n_par * 2 / 2 ** 30:.2f} GiB "
+        f"bf16), init {time.perf_counter() - t0:.2f} s")
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (B, S))
+    toks = torch.from_numpy(prompts.astype(np.int32)).to(dev)
+    server = BatchServer(params, cfg, batch=B, max_seq=max_seq, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    times, outs, launches = [], [], {}
+    for _ in range(2):            # the first request, then a warm one
+        reqs = [Request(prompt=p.tolist(), max_new=new) for p in prompts]
+        dt, lc = served(torch, server, reqs, cfg.name)
+        check(lc["flash_attention"] == cfg.n_layers,
+              f"[lm] {cfg.name}: {lc['flash_attention']} B6 launches in "
+              f"one prefill, want {cfg.n_layers}")
+        check(all(len(r.out) == new
+                  and all(0 <= t < cfg.vocab for t in r.out) for r in reqs),
+              f"[lm] {cfg.name}: bad tokens")
+        times.append(dt)
+        outs.append([r.out for r in reqs])
+        for key, val in lc.items():
+            launches[key] = launches.get(key, 0) + val
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(outs[0] == outs[1], f"[lm] {cfg.name}: greedy tokens differ "
+                              f"between two requests")
+
+    with torch.inference_mode():
+        logits, cache = tfm.prefill(params, toks, cfg, max_seq)
+        check(logits.shape == (B, cfg.vocab)
+              and bool(torch.isfinite(logits).all()),
+              f"[lm] {cfg.name}: bad prefill logits")
+        pre_ms = time_ms(torch, lambda: tfm.prefill(params, toks, cfg,
+                                                    max_seq),
+                         reps=5, warmup=1)
+        tok = logits.argmax(-1).to(torch.int32)
+        step_ms = time_ms(torch, lambda: tfm.decode_step(params, cache, tok,
+                                                         cfg),
+                          reps=20, warmup=3)
+        (pb, po), (sb, so) = lm_work(cfg, B, S)
+        pre_bound, pre_by = bound(pb, po, BF16_OPS_PER_S)
+        step_bound, step_by = bound(sb, so, BF16_OPS_PER_S)
+        log(f"  {cfg.name} B={B} S={S} +{new} greedy, served twice (host "
+            f"clock, one prefill + {new} steps each): first {times[0]:.3f}"
+            f" s, then {times[1]:.3f} s = {B * new / times[1]:,.1f} "
+            f"tokens/s, the same tokens; peak {peak:.2f} GiB; B6 launches "
+            f"{lc['flash_attention']} a request (one a layer), plain "
+            f"attention 0")
+        log(f"    prefill {pre_ms:.3f} ms (median of 5, events), bound "
+            f"{pre_bound:.3f} ms ({pre_by}: {po / 1e12:.2f} TFLOP dense "
+            f"bf16, {pb / 1e9:.2f} GB), {po / pre_ms / 1e9:.1f} TFLOP/s; "
+            f"decode {step_ms:.3f} ms a token-step (median of 20, events), "
+            f"bound {step_bound:.3f} ms ({step_by}: {sb / 1e9:.2f} GB), "
+            f"{B / step_ms * 1e3:,.1f} tokens/s in steady decode")
+
+        # B6 on the prefill's own layer-0 q/k/v
+        x = params["embed"][toks]
+        rope = rope_frequencies(cfg.hd, S, cfg.rope_theta, device=dev)
+        q, k, v = tfm.attention_qkv(params["layers"][0], x, cfg, rope)
+        qh, kh, vh = attention.gqa_heads(q, k, v)
+        got = flash_attention(qh, kh, vh, causal=True)
+        want = ref.flash_attention_ref(qh, kh, vh, causal=True)
+        err = max_abs_err(torch, got.float(), want.float())
+        tol = ATTN_TOL["bfloat16"]
+        ok = torch.allclose(got.float(), want.float(), **tol)
+        what = (f"bf16 B={B} H={cfg.n_heads} S={S} d={cfg.hd} causal, "
+                f"{cfg.name} layer 0")
+        log(f"    flash_attention {what}: max_abs_err {err:.3e} (rtol "
+            f"{tol['rtol']:g}, atol {tol['atol']:g}: "
+            f"{'ok' if ok else 'FAILED'})")
+        check(ok, f"flash_attention disagrees with its plain version "
+                  f"({what})")
+        r = rec["flash_attention"]
+        r["max_abs_err"] = max(r["max_abs_err"], err)
+        del got, want, x, q, k, v, qh, kh, vh
+
+    prefill_vs_steps(torch, params, cfg, toks, max_seq)
+    del params, cache, server
+    torch.cuda.empty_cache()
+    return launches
+
+
+def lm_smoke_parity(torch):
+    """The smoke configs in f32, card against the port's CPU run: the
+    same weights and ragged prompts through ``BatchServer`` (one group),
+    greedy tokens equal and the prefill's logits within the f32
+    attention tolerance.  Returns the card runs' launch counts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.serve_loop import BatchServer, Request
+    dev = torch.device(DEVICE)
+    runs = []
+    for arch in LM_SMOKE_ARCHS:
+        cfg = get_arch(arch).smoke
+        params = tfm.init_params(cfg, torch.Generator().manual_seed(0),
+                                 "cpu")
+        card = _tree_to(params, dev)
+
+        def reqs():
+            rng = np.random.default_rng(1)
+            return [Request(prompt=rng.integers(0, cfg.vocab, n).tolist(),
+                            max_new=SMOKE_NEW) for n in SMOKE_PROMPTS]
+        max_seq = max(SMOKE_PROMPTS) + SMOKE_NEW + 8
+        cpu = BatchServer(params, cfg, batch=len(SMOKE_PROMPTS),
+                          max_seq=max_seq, device="cpu").generate(reqs())
+        got = reqs()
+        _, lc = served(torch, BatchServer(card, cfg, batch=len(got),
+                                          max_seq=max_seq, device=dev),
+                       got, arch + " smoke")
+        check(lc["flash_attention"] == cfg.n_layers,
+              f"[lm] {arch} smoke: {lc['flash_attention']} B6 launches")
+        runs.append(lc)
+        toks = torch.from_numpy(np.random.default_rng(2).integers(
+            0, cfg.vocab, (4, max(SMOKE_PROMPTS))).astype(np.int32))
+        with torch.inference_mode():
+            want, _ = tfm.prefill(params, toks, cfg, max_seq)
+            lg, _ = tfm.prefill(card, toks.to(dev), cfg, max_seq)
+        err = max_abs_err(torch, lg.cpu(), want)
+        tol = ATTN_TOL["float32"]
+        same = [r.out for r in got] == [r.out for r in cpu]
+        ok = torch.allclose(lg.cpu(), want, **tol)
+        log(f"  {arch} smoke f32: {len(got)} prompts of {SMOKE_PROMPTS} "
+            f"tokens, +{SMOKE_NEW} greedy: card tokens "
+            f"{'==' if same else '!='} CPU tokens; prefill logits card vs "
+            f"CPU max_abs_err {err:.3e} (rtol {tol['rtol']:g}, atol "
+            f"{tol['atol']:g}: {'ok' if ok else 'FAILED'}); B6 launches "
+            f"{lc['flash_attention']}")
+        check(same, f"[lm] {arch} smoke: the card's greedy tokens differ "
+                    f"from the CPU's")
+        check(ok, f"[lm] {arch} smoke: the card's prefill logits differ "
+                  f"from the CPU's")
+    return runs
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_to(v, dev) for v in tree]
+    return tree.to(dev)
+
+
+def lm_phase(torch, rec):
+    """LM serving on the card: qwen3-32b at full width cut to
+    ``LM_LAYERS`` layers and deepseek-moe-16b at full width cut to
+    ``MOE_LAYERS`` (``lm_full_width``), the three smoke configs in f32
+    against the CPU (``lm_smoke_parity``), and the ``serve`` launcher's
+    ``main`` on the card.  Returns the counted runs' launch counts."""
+    import contextlib
+    import dataclasses
+    import io
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import serve
+    runs = []
+    qwen = dataclasses.replace(get_arch("qwen3-32b").full,
+                               n_layers=LM_LAYERS)
+    runs.append(lm_full_width(torch, qwen, LM_SHAPE, rec))
+    moe = dataclasses.replace(get_arch("deepseek-moe-16b").full,
+                              n_layers=MOE_LAYERS)
+    runs.append(lm_full_width(torch, moe, MOE_SHAPE, rec))
+    runs += lm_smoke_parity(torch)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc, lc = counted(torch, lambda: serve.main(
+            ["--arch", "qwen3-32b", "--device", DEVICE]))
+    text = out.getvalue()
+    log(f"  serve --arch qwen3-32b --device {DEVICE} (smoke): "
+        + " | ".join(text.strip().splitlines()[:1])
+        + f"; B6 launches {lc['flash_attention']}")
+    check(rc == 0 and f"on {DEVICE}" in text and lc["flash_attention"] ==
+          get_arch("qwen3-32b").smoke.n_layers,
+          f"[lm] the serve launcher failed on the card: rc {rc}, {text!r}")
+    runs.append(lc)
+    torch.cuda.empty_cache()
+    return runs
+
+
 KERNELS = {
     "frontier_relax": (
         "src/repro_torch/kernels/csrc/frontier_relax.cu",
@@ -2919,6 +3358,9 @@ def main() -> int:
                       lambda: xdeepfm_phase(torch))
     attn_launch = phase("attention", "the ops.flash_attention entry point",
                         lambda: attention_entry_phase(torch))
+    runs_lm = phase("lm", "LM serving: qwen3-32b and deepseek-moe-16b at "
+                    "full width, smoke configs against the CPU",
+                    lambda: lm_phase(torch, rec))
     if args.profile:
         log("[profile] torch.profiler over the first rounds of each route")
         profile_phase(torch, pt)
@@ -2927,7 +3369,7 @@ def main() -> int:
     launch_runs = [k["launches"] for r in runs.values() for k in r.values()]
     for lc in (launch_runs + runs_dyn + runs_p2p + runs_bidi + runs_fleet
                + runs_serve + runs_launch + runs_base + runs_dist
-               + runs_legacy + [xd_launch, attn_launch]):
+               + runs_legacy + [xd_launch, attn_launch] + runs_lm):
         for k, v in lc.items():
             main_launch[k] += v
     kernels = []

@@ -7,8 +7,9 @@ same arrays; ``delta_from_arrays`` does the same for a ``GraphDelta``,
 ``landmark_tables_from_arrays`` for a ``LandmarkIndex``'s two distance
 tables, ``fleet_from_arrays``, ``stacked_delta_from_arrays`` and
 ``fleet_state_from_arrays`` for a ``GraphFleet``, a stacked delta and a
-``FleetSolver.state_dict()``, and ``xdeepfm_params_from_arrays`` for a
-parameter tree.  So both packages can be run on identical inputs.
+``FleetSolver.state_dict()``, and ``xdeepfm_params_from_arrays`` and
+``lm_params_from_arrays`` for a parameter tree.  So both packages can be
+run on identical inputs.
 """
 from __future__ import annotations
 
@@ -142,3 +143,36 @@ def xdeepfm_params_from_arrays(params, device=None) -> dict:
         "dnn": [(f32(w), f32(b)) for w, b in params["dnn"]],
         "bias": f32(params["bias"]), "cin_out": f32(params["cin_out"]),
     }
+
+
+_SUB_NAMES = ("a", "b", "c", "d")
+
+
+def lm_params_from_arrays(params, cfg, device=None) -> dict:
+    """The reference's LM parameter tree (``embed``, ``lm_head``,
+    ``final_norm`` and ``layers``, stacked per super-block: ``layers[
+    name][leaf]`` with a leading dim of ``n_layers // moe_every``,
+    ``name`` "a", "b", ... for the layers of a super-block) as the port's
+    tree, whose ``layers`` is a list of per-layer dicts.  ``cfg`` is the
+    port's ``LMConfig``.  bfloat16 leaves go through float32 and back,
+    which is exact; every other leaf is float32."""
+    device = resolve_device(device)
+
+    def leaf(x):
+        a = np.asarray(x)
+        t = _arr(a, np.float32, device)
+        return t.to(torch.bfloat16) if a.dtype.name == "bfloat16" else t
+
+    def tree(x, pick):
+        if isinstance(x, dict):
+            return {k: tree(v, pick) for k, v in x.items()}
+        return leaf(pick(x))
+
+    layers = []
+    for i in range(cfg.n_layers):
+        s, sub = divmod(i, cfg.moe_every)
+        layers.append(tree(params["layers"][_SUB_NAMES[sub]],
+                           lambda a, s=s: np.asarray(a)[s]))
+    return {"embed": leaf(params["embed"]),
+            "lm_head": leaf(params["lm_head"]),
+            "final_norm": leaf(params["final_norm"]), "layers": layers}

@@ -3,7 +3,10 @@
 Softmax attention on ``[B, H, S, d]`` with an online softmax, causal or
 full, in float32 or bfloat16, ``d <= 128`` and both sequence lengths
 multiples of 128 (as the reference asserts).  K and V have as many heads
-as Q: grouped-query callers repeat them first.  A CPU tensor goes to
+as Q: the grouped-query caller, ``models/attention.flash_attention_gqa``
+(every prompt attention of the LM path), repeats each KV head G times
+and right-pads the sequence to a multiple of 128, which causal masking
+keeps invisible to the real queries.  A CPU tensor goes to
 ``ref.flash_attention_ref``, a CUDA tensor to ``csrc/flash_attn.cu``.
 
 ``causal=True`` needs ``Sq == Sk``.  The reference's two functions

@@ -114,6 +114,7 @@ def cin_layer(x_k: torch.Tensor, x_0: torch.Tensor,
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True) -> torch.Tensor:
     """Attention on ``[B, H, S, d]`` (B6); K/V repeated to H heads by the
-    caller, ``causal`` only with ``Sq == Sk``."""
+    caller (``models/attention.flash_attention_gqa``), ``causal`` only
+    with ``Sq == Sk``."""
     return _flash.flash_attention(q.contiguous(), k.contiguous(),
                                   v.contiguous(), causal=causal)

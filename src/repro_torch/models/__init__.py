@@ -1,1 +1,2 @@
-"""Models of the port (``repro/models``); so far xDeepFM scoring."""
+"""Models of the port (``repro/models``): xDeepFM scoring and the
+decoder-only LM (``transformer``, ``attention``, ``moe``, ``common``)."""

@@ -171,7 +171,9 @@ def test_port_imports_neither_jax_nor_reference():
 
 def test_port_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch.sssp, repro_torch.convert, "
-            "repro_torch.kernels.ops; "
+            "repro_torch.kernels.ops, repro_torch.models.transformer, "
+            "repro_torch.runtime.serve_loop, repro_torch.launch.serve, "
+            "repro_torch.configs.qwen3_32b; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'repro')))")
     out = subprocess.run(
@@ -195,3 +197,18 @@ def test_entry_points_need_cuda_unless_told_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         Solver(g)
     assert Solver(g, device="cpu").solve(0).dist.device.type == "cpu"
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.serve_loop import BatchServer
+    cfg = get_arch("qwen3-32b").smoke
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tfm.init_params(cfg, gen)
+    params = tfm.init_params(cfg, gen, device="cpu")
+    assert params["embed"].device.type == "cpu"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        BatchServer(params, cfg, batch=2, max_seq=16)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tfm.init_cache(cfg, 2, 16)
+    BatchServer(params, cfg, batch=2, max_seq=16, device="cpu")
