@@ -20,7 +20,14 @@ Phases, each failing the run (non-zero exit) if it fails:
     exact), the reference's own for the CIN (3e-4) and f32 attention
     (2e-3), and two bf16 steps for bf16 attention (rtol 1.6e-2, atol
     4e-3, inside the reference's 2e-2); median times by CUDA events,
-    device times by torch.profiler;
+    device times by torch.profiler; then the training kernels: B6's
+    forward with the log-sum-exp and its backward (``flash_attn_bwd.cu``)
+    at the ``[train]`` qwen3-32b layer in bf16 (each gradient within
+    two bf16 steps of its largest magnitude) and at a smaller f32 shape
+    (2e-3), against SDPA's backward; ``cin_weight_grad`` and the whole B5
+    backward (dx_0 split over 191 fields) at FULL widths, B 512 and
+    65,536, within 3e-4 of float64 (of the largest magnitude), against
+    the einsum forms;
  4. SSSP main path at full size through ``repro_torch.sssp.Solver``:
     grid(side=1024) via "auto" (must route to frontier), gnp(2^20, 8) via
     "auto" (must route to segment) and via "pallas"; ``solve`` and an
@@ -47,7 +54,7 @@ Phases, each failing the run (non-zero exit) if it fails:
     bitwise ``[p2p]``'s, every path real edges, B1 launched twice a
     frontier round; then ``update`` with ``[dynamic]``'s delta refreshing
     2 grid and 8 gnp pairs warm, bitwise cold solves and near scipy;
-    ``[fleet]``: a segment ``FleetSolver`` over 8 grids of side 256
+    ``[fleet]``: a segment ``FleetSolver`` over 8 grids of side 128
     (``solve``, ``solve_batch`` [8, 8], stacked deltas, ``update``,
     ``resolve``), every member bitwise its per-graph solve, host reads
     rounds + 2 whatever F; a frontier fleet of 2 members; a
@@ -78,7 +85,7 @@ Phases, each failing the run (non-zero exit) if it fails:
     the bounds invariants checked every round and the card's trace
     bitwise the CPU's;
     ``[parity]``: the card bitwise against the port's own CPU run on
-    2^13-vertex graphs of the seven generator families (cold batch, warm
+    2^12-vertex graphs of the seven generator families (cold batch, warm
     update with its stats, seeded targeted batch;
     bidirectional pairs and a 3-member fleet, cold and updated, on both
     routes), a planned service on the grid (frontier) and gnp (pallas), two waves
@@ -109,6 +116,18 @@ Phases, each failing the run (non-zero exit) if it fails:
     tokens).  The qwen3, deepseek and llama4 smoke configs in f32, card
     against the port's CPU run: greedy tokens equal, prefill logits
     within 2e-3.  Then the ``serve`` launcher's ``main`` on the card.
+ 9. ``[train]``, training through ``repro_torch.runtime.train_loop.
+    Trainer`` (AdamW, clipping, warmup-cosine): qwen3-32b at full width
+    cut to 4 layers, 5 steps on ``TokenStream`` B 4 x 1,024, and
+    deepseek-moe-16b at full width cut to 2 layers, 3 steps of B 4 x 512
+    (the router moves), every step counted (one B6 forward with lse and
+    one B6 backward a layer), step ms, tokens/s and peak GiB against
+    ``train_work``'s bound; the FULL xDeepFM (uncut table) at its
+    ``train_batch`` of 65,536, 3 steps, CIN launches a step pinned
+    (``cin.backward_launches``), rows/s; the SMOKE xDeepFM's 60 SGD
+    steps (the loss falls); the five LM smoke configs in f32, loss and
+    gradients card against CPU (2e-3); the ``train`` launcher, and its
+    xDeepFM run resumed from its checkpoints.
 
 Each phase prints its wall time.
 
@@ -123,6 +142,7 @@ from __future__ import annotations
 import argparse
 import collections
 import copy
+import functools
 import hashlib
 import json
 import statistics
@@ -144,8 +164,9 @@ DEVICE = "cuda"
 GRID_SIDE = 1024              # grid(side=1024): n = 2^20, 4.2 M edges
 GNP_N = 1 << 20               # gnp(2^20, avg_deg=8): 8.4 M edges
 FRONTIER_CAP = 4096           # the Solver's default cap at n = 2^20
-PARITY_N = 1 << 13            # card vs CPU parity graphs (sized for the
-#   script's time limit: its runs are host-bound, ~linear in rounds)
+PARITY_N = 1 << 12            # card vs CPU parity graphs (sized for the
+#   script's time limit: its runs are host-bound, ~linear in rounds;
+#   2^13 took 124.2-172.2 s)
 PARITY_HUB_N = 1 << 9         # power_law's frontier fleet (see fleet_parity)
 FLEET_SIDE = 256              # [fleet]: 8 grids, n = 2^16 each (sized for
 #   the script's time limit: side 512 took ~150 s of the script's time)
@@ -738,6 +759,48 @@ def attn_inputs(torch, dtype, seed: int = 0, a=ATTN_SHAPE):
     return q, k, v
 
 
+def held_rec(torch, rec, name, got, want, rtol, atol, what):
+    """``got`` allclose ``want`` (logged, and failing the run if not);
+    the error joins kernel ``name``'s ``max_abs_err`` in ``rec``."""
+    err = max_abs_err(torch, got.float(), want.float())
+    ok = torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol)
+    log(f"  {name:16s} {what:44s} max_abs_err={err:.3e} "
+        f"(rtol {rtol:g}, atol {atol:g}: {'ok' if ok else 'FAILED'})")
+    check(ok, f"{name} disagrees with its plain version ({what})")
+    r = rec.setdefault(name, {"max_abs_err": 0.0, "shapes": []})
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    return err
+
+
+def timed_rec(torch, rec, name, what, err, kern, plain, lib, lib_name,
+              nbytes, nops, ops_per_s=FP32_OPS_PER_S, peak_name="f32",
+              tc_ops_per_s=None, plain_reps=5):
+    """Event and device times of ``kern``, ``plain`` and ``lib`` (the
+    library call) and the bound, logged and recorded for ``name``.
+    ``tc_ops_per_s``: the tensor-core rate of a split-f32 kernel, which
+    takes three products for each f32 product."""
+    ms = time_ms(torch, kern)
+    pl = time_ms(torch, plain, reps=plain_reps, warmup=1)
+    lb = time_ms(torch, lib, reps=5, warmup=1)
+    dt = dict(kernel=device_ms(torch, kern),
+              plain=device_ms(torch, plain, reps=plain_reps),
+              library=device_ms(torch, lib, reps=5))
+    b_ms, b_by = bound(nbytes, nops, ops_per_s)
+    extra = dict(max_abs_err=err)
+    tc = ""
+    if tc_ops_per_s:
+        extra["tensor_core_bound_ms"] = 3 * nops / tc_ops_per_s * 1e3
+        tc = (f", 3-product tensor-core bound "
+              f"{extra['tensor_core_bound_ms']:.4f} ms")
+    log(f"  {name} {what}: kernel {ms:.4f} ms, plain {pl:.4f} ms, "
+        f"{lib_name} {lb:.4f} ms (events); device {dt['kernel']:.4f} / "
+        f"{dt['plain']:.4f} / {dt['library']:.4f} ms; bound "
+        f"{b_ms:.4f} ms ({b_by}, {peak_name} peak){tc}; "
+        f"{nops / ms / 1e9:.2f} TFLOP/s; device time / {lib_name}'s "
+        f"{dt['kernel'] / dt['library'] if dt['library'] else 0:.3f}")
+    record(rec, name, what, ms, pl, lb, dt, b_ms, b_by, **extra)
+
+
 def model_kernel_phase(torch, rec):
     """B5 and B6 against their plain versions at the main paths' shapes.
 
@@ -749,41 +812,8 @@ def model_kernel_phase(torch, rec):
     from repro_torch.kernels import ref
     from repro_torch.kernels.cin import cin_layer
     from repro_torch.kernels.flash_attn import flash_attention
-
-    def held(name, got, want, rtol, atol, what):
-        err = max_abs_err(torch, got.float(), want.float())
-        ok = torch.allclose(got.float(), want.float(), rtol=rtol, atol=atol)
-        log(f"  {name:16s} {what:44s} max_abs_err={err:.3e} "
-            f"(rtol {rtol:g}, atol {atol:g}: {'ok' if ok else 'FAILED'})")
-        check(ok, f"{name} disagrees with its plain version ({what})")
-        r = rec.setdefault(name, {"max_abs_err": 0.0, "shapes": []})
-        r["max_abs_err"] = max(r["max_abs_err"], err)
-        return err
-
-    def timed(name, what, err, kern, plain, lib, lib_name, nbytes, nops,
-              ops_per_s=FP32_OPS_PER_S, peak_name="f32", tc_ops_per_s=None):
-        """``tc_ops_per_s``: the tensor-core rate of a split-f32 kernel,
-        which takes three products for each f32 product."""
-        ms = time_ms(torch, kern)
-        pl = time_ms(torch, plain, reps=5, warmup=1)
-        lb = time_ms(torch, lib, reps=5, warmup=1)
-        dt = dict(kernel=device_ms(torch, kern),
-                  plain=device_ms(torch, plain, reps=5),
-                  library=device_ms(torch, lib, reps=5))
-        b_ms, b_by = bound(nbytes, nops, ops_per_s)
-        extra = dict(max_abs_err=err)
-        tc = ""
-        if tc_ops_per_s:
-            extra["tensor_core_bound_ms"] = 3 * nops / tc_ops_per_s * 1e3
-            tc = (f", 3-product tensor-core bound "
-                  f"{extra['tensor_core_bound_ms']:.4f} ms")
-        log(f"  {name} {what}: kernel {ms:.4f} ms, plain {pl:.4f} ms, "
-            f"{lib_name} {lb:.4f} ms (events); device {dt['kernel']:.4f} / "
-            f"{dt['plain']:.4f} / {dt['library']:.4f} ms; bound "
-            f"{b_ms:.4f} ms ({b_by}, {peak_name} peak){tc}; "
-            f"{nops / ms / 1e9:.2f} TFLOP/s; device time / {lib_name}'s "
-            f"{dt['kernel'] / dt['library'] if dt['library'] else 0:.3f}")
-        record(rec, name, what, ms, pl, lb, dt, b_ms, b_by, **extra)
+    held = functools.partial(held_rec, torch, rec)
+    timed = functools.partial(timed_rec, torch, rec)
 
     # --- B5 at serve_p99, CIN layers 1 (H = 39) and 2 (H = 200) ---------
     c = CIN_SHAPE
@@ -867,6 +897,271 @@ def model_kernel_phase(torch, rec):
                  **ATTN_TOL[str(dtype)[6:]],
                  what=f"edge {str(dtype)[6:]} H={BH} S={S} d={d} "
                       f"causal={causal}")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+# the [train] qwen3-32b layer as B6's backward gets it (TRAIN_SHAPE), and
+# a smaller f32 one; B5's backward at FULL widths at serve_p99's batch and
+# at the training batch (SHAPES["train_batch"], the main path's, last)
+TRAIN_ATTN_SHAPE = dict(B=4, H=64, H_KV=8, S=1024, d=128)
+TRAIN_ATTN_F32 = dict(B=1, H=16, H_KV=8, S=512, d=128)
+CIN_TRAIN_BATCHES = (512, 65536)
+# a bf16 gradient against its plain version, element by element: rtol
+# two bf16 steps (B6's forward rule, 1.6e-2) of the element, plus an atol
+# of BF16_GRAD_ATOL_STEPS bf16 steps (2^-7 each) of the RMS of the
+# element's row (one head's d-vector at one position).  The backward
+# rounds P and dS to bf16 before its products (FA2), so an element's
+# error scales with the terms summed into its row, not with the element
+# itself (which may cancel to near 0) nor with the gradient's largest
+# entries (at the first positions, 100x a typical one).  A row that is 0
+# in exact arithmetic (dQ of the first query under the causal mask: its
+# one score's gradient P (dP - Delta) is 0) keeps only float32 residues
+# of that cancellation: its RMS is floored at BF16_GRAD_ROW_FLOOR of the
+# whole gradient's
+BF16_GRAD_TOL = 1.6e-2
+BF16_GRAD_ATOL_STEPS = 4
+BF16_GRAD_ROW_FLOOR = 2.0 ** -8
+# the query tile of the bf16 dK/dV kernel (kQt in csrc/flash_attn_bwd.cu)
+BWD_QUERY_TILE = 32
+# B5's gradients against float64: the reference's CIN tolerance (3e-4),
+# of the gradient's largest magnitude
+CIN_GRAD_TOL = 3e-4
+
+
+def held_scaled(torch, rec, name, got, want, tol, what):
+    """``max |got - want| <= tol * max |want|`` (logged; fails the run if
+    not); returns the absolute error."""
+    scale = float(want.float().abs().max())
+    return held_rec(torch, rec, name, got, want, 0.0, tol * scale,
+                    f"{what}, tol {tol:g} x max {scale:.3g}")
+
+
+def bf16_grad_check(torch, got, want):
+    """``(ok, worst, median)``: at every element ``|got - want| <=
+    BF16_GRAD_TOL * |want| + atol``, ``atol`` BF16_GRAD_ATOL_STEPS bf16
+    steps of the RMS of the element's row of ``want`` (at least
+    BF16_GRAD_ROW_FLOOR of the RMS of all of ``want``); ``worst`` is the
+    largest ratio of an element's error to its allowance (``ok`` iff it
+    is at most 1), ``median`` the median allowance."""
+    w = want.float()
+    err = (got.float() - w).abs()
+    floor = BF16_GRAD_ROW_FLOOR * float(w.square().mean().sqrt())
+    rms = w.square().mean(-1, keepdim=True).sqrt().clamp_min(floor)
+    allow = BF16_GRAD_TOL * w.abs() + BF16_GRAD_ATOL_STEPS * 2.0 ** -7 * rms
+    return (bool((err <= allow).all()),
+            float((err / allow.clamp_min(1e-30)).max()),
+            float(allow.median()))
+
+
+def held_bf16_grad(torch, rec, name, got, want, what):
+    """A bf16 gradient held element by element (``bf16_grad_check``;
+    logged, fails the run if not); returns the absolute error."""
+    err = max_abs_err(torch, got.float(), want.float())
+    ok, worst, median = bf16_grad_check(torch, got, want)
+    loose = BF16_GRAD_TOL * float(want.float().abs().max())
+    log(f"  {name:16s} {what:44s} max_abs_err={err:.3e} (rtol "
+        f"{BF16_GRAD_TOL:g}, atol {BF16_GRAD_ATOL_STEPS} bf16 steps of the "
+        f"row's RMS: largest error / allowance {worst:.3f}, median "
+        f"allowance {median:.3e} against {loose:.3e} for one bound of "
+        f"{BF16_GRAD_TOL:g} x max |want|; {'ok' if ok else 'FAILED'})")
+    check(ok, f"{name} disagrees with its plain version ({what})")
+    r = rec.setdefault(name, {"max_abs_err": 0.0, "shapes": []})
+    r["max_abs_err"] = max(r["max_abs_err"], err)
+    return err
+
+
+def bf16_grad_faults(torch, q, k, v, o, lse, do, wants):
+    """The bf16 gradient check must reject two planted faults of the
+    dK/dV kernel, made from the plain version: its last query tile
+    dropped (dO zeroed on the last BWD_QUERY_TILE queries), and the causal
+    diagonal masked (each key's own query's term taken off dK and dV).
+    Logged beside the allowance of one bound scaled by the largest entry;
+    fails the run if the check accepts either fault."""
+    from repro_torch.kernels import ref
+    S, scale = q.shape[2], q.shape[-1] ** -0.5
+    do_cut = do.clone()
+    do_cut[:, :, S - BWD_QUERY_TILE:] = 0
+    _, dk_cut, dv_cut = ref.flash_attention_bwd_ref(q, k, v, o, lse, do_cut,
+                                                    True)
+    del do_cut
+    qf, kf, vf, of, dof = (t.float() for t in (q, k, v, o, do))
+    p = torch.exp((qf * kf).sum(-1) * scale - lse)[..., None]
+    ds = p * ((dof * vf).sum(-1) - (dof * of).sum(-1))[..., None]
+    dk_diag = (wants[1].float() - ds * qf * scale).to(k.dtype)
+    dv_diag = (wants[2].float() - p * dof).to(v.dtype)
+    del qf, kf, vf, of, dof, p, ds
+    for fault, dk, dv in (
+            (f"last {BWD_QUERY_TILE}-query tile dropped", dk_cut, dv_cut),
+            ("causal diagonal masked", dk_diag, dv_diag)):
+        caught = False
+        for gname, got, want in (("dk", dk, wants[1]), ("dv", dv, wants[2])):
+            ok, worst, _ = bf16_grad_check(torch, got, want)
+            err = max_abs_err(torch, got.float(), want.float())
+            loose = BF16_GRAD_TOL * float(want.float().abs().max())
+            log(f"  planted fault ({fault}) {gname}: max_abs_err "
+                f"{err:.3e}, largest error / allowance {worst:.3f}: "
+                f"{'accepted' if ok else 'rejected'} (one bound of "
+                f"{BF16_GRAD_TOL:g} x max |want| = {loose:.3e} would "
+                f"{'accept' if err <= loose else 'reject'} it)")
+            caught = caught or not ok
+        check(caught, f"the bf16 gradient check accepts a planted fault "
+                      f"({fault})")
+
+
+def bwd_kernel_phase(torch, rec):
+    """The backward kernels against their plain versions: B6's
+    (``attn_bwd_check``), then B5's (``cin_bwd_check``)."""
+    attn_bwd_check(torch, rec)
+    cin_bwd_check(torch, rec)
+
+
+def attn_bwd_check(torch, rec):
+    """B6's forward with the log-sum-exp and its backward against their
+    plain versions at the [train] qwen3-32b layer (bf16, with the planted
+    faults of ``bf16_grad_faults``) and at a smaller f32 shape, timed
+    against SDPA's backward (autograd of
+    ``scaled_dot_product_attention``)."""
+    from repro_torch.kernels import flash_attn, ref
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for dtype, a in ((torch.float32, TRAIN_ATTN_F32),
+                     (torch.bfloat16, TRAIN_ATTN_SHAPE)):
+        name = str(dtype)[6:]
+        q, k, v = attn_inputs(torch, dtype, seed=3, a=a)
+        do = torch.randn(q.shape, generator=torch.Generator(
+            device=DEVICE).manual_seed(4), device=DEVICE).to(dtype)
+        what = (f"{name} B={a['B']} H={a['H']} (K/V repeated from "
+                f"{a['H_KV']}) S={a['S']} d={a['d']} causal")
+        o, lse = flash_attn._forward(q, k, v, True, with_lse=True)
+        want_o, want_lse = ref.flash_attention_fwd_ref(q, k, v, True)
+        err = held_rec(torch, rec, "flash_attention_lse", o, want_o,
+                       what=what + " out", **ATTN_TOL[name])
+        err = max(err, held_rec(torch, rec, "flash_attention_lse", lse,
+                                want_lse, what=what + " lse",
+                                **ATTN_TOL["float32"]))
+        grads = flash_attn.flash_attention_bwd(q, k, v, o, lse, do, True)
+        wants = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, True)
+        b_err = 0.0
+        for gname, got, want in zip(("dq", "dk", "dv"), grads, wants):
+            if dtype == torch.bfloat16:
+                e = held_bf16_grad(torch, rec, "flash_attention_bwd", got,
+                                   want, f"{what} {gname}")
+            else:
+                e = held_rec(torch, rec, "flash_attention_bwd", got, want,
+                             what=f"{what} {gname}", **ATTN_TOL[name])
+            b_err = max(b_err, e)
+        if dtype == torch.bfloat16:
+            bf16_grad_faults(torch, q, k, v, o, lse, do, wants)
+        del grads, wants, want_o, want_lse
+        B, H, S, d = a["B"], a["H"], a["S"], a["d"]
+        elt = q.element_size()
+        peak, peak_name = ((BF16_OPS_PER_S, "dense bf16")
+                           if dtype == torch.bfloat16 else
+                           (FP32_OPS_PER_S, "f32"))
+        timed_rec(torch, rec, "flash_attention_lse", what, err,
+                  lambda: flash_attn._forward(q, k, v, True, with_lse=True),
+                  lambda: ref.flash_attention_fwd_ref(q, k, v, True),
+                  lambda: sdpa(q, k, v, is_causal=True), "sdpa",
+                  4 * q.numel() * elt + 4 * B * H * S,
+                  2.0 * S * S * d * B * H, peak, peak_name)
+        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        lib_out = sdpa(*leaves, is_causal=True)
+        # bytes: q, k, v, o, dO read, dq, dk, dv written, lse and D; five
+        # products of S*S*d multiply-adds a head, half of them masked
+        timed_rec(torch, rec, "flash_attention_bwd", what, b_err,
+                  lambda: flash_attn.flash_attention_bwd(q, k, v, o, lse, do,
+                                                         True),
+                  lambda: ref.flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                                      True),
+                  lambda: torch.autograd.grad(lib_out, leaves, do,
+                                              retain_graph=True),
+                  "sdpa backward", 8 * q.numel() * elt + 8 * B * H * S,
+                  5.0 * S * S * d * B * H, peak, peak_name)
+        del q, k, v, do, o, lse, leaves, lib_out
+        torch.cuda.empty_cache()
+
+
+def cin_bwd_check(torch, rec):
+    """``cin_weight_grad`` and the whole B5 backward (input gradients
+    through the forward kernel with permuted weights, dx_0 split over 191
+    fields) at FULL widths, B 512 and 65,536, against float64, timed
+    against the einsum forms."""
+    from repro_torch.kernels import cin, ref
+    c = CIN_SHAPE
+    M, D, K = c["M"], c["D"], c["K"]
+    g = torch.Generator(device=DEVICE).manual_seed(6)
+    for B in CIN_TRAIN_BATCHES:
+        for H in (M, 200):
+            def draw(*shape):
+                return torch.randn(shape, generator=g, device=DEVICE)
+            xk, x0, w, up = (draw(B, H, D), draw(B, M, D), draw(K, H, M),
+                             draw(B, K, D))
+            what = f"B={B} H={H} M={M} D={D} K={K}"
+            step = min(B, 4096)
+            exact = sum(ref.cin_weight_grad_ref(
+                up[i:i + step].double(), xk[i:i + step].double(),
+                x0[i:i + step].double()) for i in range(0, B, step))
+            dw = cin.cin_weight_grad(up, xk, x0)
+            err = held_scaled(torch, rec, "cin_weight_grad", dw, exact,
+                              CIN_GRAD_TOL, what + " vs f64")
+            del exact
+            # the whole backward through the autograd path: dx_k and dx_0
+            # (B5 with permuted weights, dx_0 in ceil(H / 191) calls) on
+            # the first rows against float64
+            leaves = [t.clone().requires_grad_() for t in (xk, x0, w)]
+            out = cin.cin_layer(*leaves)
+            grads = torch.autograd.grad(out, leaves, up, retain_graph=True)
+            rows = slice(0, step)
+            wants = ref.cin_layer_bwd_ref(xk[rows].double(),
+                                          x0[rows].double(), w.double(),
+                                          up[rows].double())
+            for gname, got, want in zip(("dx_k", "dx_0"), grads, wants):
+                held_scaled(torch, rec, "cin_layer", got[rows], want,
+                            CIN_GRAD_TOL, f"backward {gname} {what} rows "
+                            f"0..{step - 1} vs f64")
+            del wants
+            nops = 2.0 * K * H * M * D * B
+            nbytes = 4 * (B * (H + M + K) * D + K * H * M)
+            if B * H * M * D * 4 <= 2 ** 33:
+                def plain():
+                    return ref.cin_weight_grad_ref(up, xk, x0)
+                plain_what = "plain"
+            else:                       # the outer product in 8 parts
+                def plain():
+                    part = B // 8
+                    return sum(ref.cin_weight_grad_ref(
+                        up[i:i + part], xk[i:i + part], x0[i:i + part])
+                        for i in range(0, B, part))
+                plain_what = "plain in 8 parts of the batch"
+            bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+                out, leaves, up, retain_graph=True), reps=5, warmup=1)
+            z_gb = B * H * M * D * 4 / 1e9
+            lib_bwd_ms = None
+            if z_gb <= 8:               # the einsum keeps [B, H, M, D]
+                lib_leaves = [t.clone().requires_grad_()
+                              for t in (xk, x0, w)]
+                lib_out = torch.einsum("bhd,bmd,khm->bkd", *lib_leaves)
+                lib_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(
+                    lib_out, lib_leaves, up, retain_graph=True), reps=5,
+                    warmup=1)
+                del lib_out, lib_leaves
+            log(f"  B5 backward {what} (dx_k, dx_0, dw; autograd): "
+                f"{bwd_ms:.4f} ms, launches "
+                f"{cin.backward_launches(H, M)}; autograd of the einsum "
+                f"form " + (f"{lib_bwd_ms:.4f} ms" if lib_bwd_ms else
+                            f"not measured (its [B, H, M, D] intermediates "
+                            f"take {z_gb:.1f} GB each)")
+                + f" (events); bound {3 * nops / FP32_OPS_PER_S * 1e3:.4f} "
+                f"ms (operations, f32)")
+            timed_rec(torch, rec, "cin_weight_grad", what + f" ({plain_what})",
+                      err, lambda: cin.cin_weight_grad(up, xk, x0), plain,
+                      lambda: torch.einsum("bhd,bmd,bkd->khm", xk, x0, up),
+                      "einsum", nbytes, nops, tc_ops_per_s=TF32_OPS_PER_S,
+                      plain_reps=3)
+            rec["cin_weight_grad"]["shapes"][-1].update(
+                backward_ms=bwd_ms, autograd_einsum_ms=lib_bwd_ms)
+            del xk, x0, w, up, dw, leaves, out, grads
+            torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
 
@@ -1150,7 +1445,7 @@ def parity_cpu(family, n, c0):
 
 def cpu_parity_phase(torch, pt):
     """The card's solves equal the port's CPU solves (plain versions)
-    bitwise on 2^13-vertex graphs of every family (``parity_runs``:
+    bitwise on 2^12-vertex graphs of every family (``parity_runs``:
     warm updates and seeded targeted batches on two routes,
     bidirectional pairs and 3-member fleets on two routes each), then
     the service and the baselines (``serve_parity_runs``).  The card's
@@ -1669,7 +1964,7 @@ def bidi_phase(torch, pt, p2p, dyn):
 
 def fleet_phase(torch, pt):
     """Graph fleets: F = 8 grids of side ``FLEET_SIDE`` (seeds 0-7; at
-    256, n = 2^16 and 261,120 edges each).  A segment ``FleetSolver``'s
+    128, n = 2^14 and 65,024 edges each).  A segment ``FleetSolver``'s
     ``solve`` (one source a member, seed 2024) and ``solve_batch`` [8,
     8], every member bitwise a per-graph ``Solver(backend="segment")``
     solve, host reads rounds + 2 whatever F; ``update`` with stacked
@@ -3252,6 +3547,339 @@ def lm_phase(torch, rec):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 9: training
+# ---------------------------------------------------------------------------
+
+TRAIN_LAYERS = 4              # [train] qwen3-32b at full width, 4 of 64
+TRAIN_SHAPE = dict(B=4, S=1024, steps=5)
+TRAIN_MOE_LAYERS = 2          # [train] deepseek-moe-16b at full width, 2 of 28
+TRAIN_MOE_SHAPE = dict(B=4, S=512, steps=3)
+XDEEPFM_TRAIN_STEPS = 3
+SMOKE_SGD = dict(steps=60, lr=0.1, batch=64)
+LM_TRAIN_ARCHS = ("command-r-35b", "command-r-plus-104b", "deepseek-moe-16b",
+                  "llama4-maverick-400b-a17b", "qwen3-32b")
+
+
+def counting_steps(torch, trainer):
+    """Wraps ``trainer.step_fn`` so that every step runs with the launch
+    counts set to 0 just before and read just after; returns the list
+    the counts of each step go to."""
+    from repro_torch.kernels import _build
+    real = trainer.step_fn
+    per_step = []
+
+    def step(*a):
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        out = real(*a)
+        torch.cuda.synchronize()
+        per_step.append(_build.launch_counts())
+        return out
+    trainer.step_fn = step
+    return per_step
+
+
+def train_work(cfg, B: int, S: int):
+    """(operations, AdamW bytes) of one training step of an LM on B
+    sequences of S tokens: 6 operations a token for every weight of a
+    product the token goes through (the embedding is a gather, not a
+    product; of a MoE layer's experts the top-k and the shared), plus
+    the causal attention (forward 2 and backward 5 products of S*S*hd
+    multiply-adds, half masked, a head and layer); AdamW reads params,
+    grads and both f32 moments and writes params and moments once."""
+    emb = cfg.vocab * cfg.d_model
+    ops = (6.0 * (cfg.active_param_count() - emb) * B * S
+           + 7.0 * B * cfg.n_heads * S * S * cfg.hd * cfg.n_layers)
+    elt = 2 if cfg.param_dtype == "bfloat16" else 4
+    return ops, cfg.param_count() * (3 * elt + 16)
+
+
+def lm_train_full(torch, cfg, shape):
+    """``Trainer`` on one full-width bf16 config: random weights (seed 0),
+    ``shape["steps"]`` AdamW steps on ``TokenStream(vocab, S, B)``, each
+    counted (one B6 forward with lse and one B6 backward a layer, no
+    plain attention); loss and grad norm finite and the norm above 0, a
+    MoE router moved; step ms, tokens/s and peak GiB against
+    ``train_work``'s bound.  Returns the steps' launch counts."""
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.models import transformer as tfm
+    from repro_torch.runtime.train_loop import TrainConfig, Trainer
+    dev = torch.device(DEVICE)
+    B, S, steps = shape["B"], shape["S"], shape["steps"]
+    t0 = time.perf_counter()
+    params = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    torch.cuda.synchronize()
+    n_par = cfg.param_count()
+    log(f"  {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, heads "
+        f"{cfg.n_heads}/{cfg.n_kv_heads}, vocab {cfg.vocab:,}, "
+        f"{n_par / 1e9:.3f} B parameters, init "
+        f"{time.perf_counter() - t0:.2f} s")
+    moe = [i for i in range(cfg.n_layers) if cfg.layer_is_moe(i)]
+    router0 = (params["layers"][moe[0]]["moe"]["router"].clone()
+               if moe else None)
+    torch.cuda.reset_peak_memory_stats()
+    stream = TokenStream(cfg.vocab, S, B, seed=0)
+    trainer = Trainer(lambda p, b: tfm.loss_fn(p, b, cfg), params,
+                      TrainConfig(peak_lr=1e-4, warmup=2, total_steps=steps),
+                      stream.next_batch, name=cfg.name)
+    per_step = counting_steps(torch, trainer)
+    calls, undo = watch_plain_attention()
+    try:
+        hist = trainer.run(steps, log_every=1,
+                           print_fn=lambda line: log("    " + line))
+    finally:
+        undo()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(not calls, f"[train] {cfg.name}: the plain attention ran")
+    check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+              and h["grad_norm"] > 0 for h in hist),
+          f"[train] {cfg.name}: non-finite loss or zero grad norm: {hist}")
+    L = cfg.n_layers
+    for lc in per_step:
+        check(lc["flash_attention_lse"] == L and lc["flash_attention_bwd"]
+              == L and lc["flash_attention"] == 0,
+              f"[train] {cfg.name}: launches a step {nonzero(lc)}, want "
+              f"{L} B6 forwards with lse and {L} B6 backwards")
+    if moe:
+        moved = float((trainer.params["layers"][moe[0]]["moe"]["router"]
+                       .detach() - router0).abs().max())
+        check(np.isfinite(moved) and moved > 0,
+              f"[train] {cfg.name}: the router did not move ({moved})")
+        log(f"    MoE router of layer {moe[0]}: max |change| {moved:.3e} "
+            f"after {steps} steps")
+    times = [h["step_time_s"] for h in hist]
+    warm = statistics.median(times[1:])
+    ops, adam_bytes = train_work(cfg, B, S)
+    b_ops = ops / BF16_OPS_PER_S * 1e3
+    b_adam = adam_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"  {cfg.name} B={B} S={S}: {steps} AdamW steps, loss "
+        f"{hist[0]['loss']:.4f} -> {hist[-1]['loss']:.4f}, grad norm "
+        f"{hist[-1]['grad_norm']:.3f}; step {times[0] * 1e3:.1f} ms first, "
+        f"{warm * 1e3:.1f} ms median of the rest (host clock) = "
+        f"{B * S / warm:,.0f} tokens/s; bound {b_ops + b_adam:.1f} ms "
+        f"({ops / 1e12:.2f} TFLOP at the dense bf16 peak {b_ops:.1f} ms + "
+        f"AdamW {adam_bytes / 1e9:.1f} GB at 3.35 TB/s {b_adam:.1f} ms), "
+        f"{ops / warm / 1e12:.1f} TFLOP/s; peak {peak:.2f} GiB; launches a "
+        f"step {nonzero(per_step[-1])}")
+    del trainer, params, router0
+    torch.cuda.empty_cache()
+    return per_step
+
+
+def xdeepfm_train_full(torch):
+    """``Trainer`` on the FULL xDeepFM (uncut table) at the reference's
+    ``train_batch`` width: AdamW steps with the CIN launches of every
+    step pinned to the count the code implies (one forward a layer, and
+    ``cin.backward_launches`` a layer); loss finite, rows/s.  Returns the
+    steps' launch counts."""
+    from repro_torch.configs import xdeepfm as xcfg
+    from repro_torch.data.synthetic import RecsysStream
+    from repro_torch.kernels import cin
+    from repro_torch.models import xdeepfm as xd
+    from repro_torch.runtime.train_loop import TrainConfig, Trainer
+    cfg = xcfg.FULL
+    dev = torch.device(DEVICE)
+    B = xcfg.SHAPES["train_batch"]["batch"]
+    params = xd.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev)
+    stream = RecsysStream(cfg.sizes(), cfg.offsets, B,
+                          values=xcfg.VALUES_PER_FIELD, seed=0)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(xd.loss_fn, params, TrainConfig(
+        peak_lr=1e-3, warmup=1, total_steps=XDEEPFM_TRAIN_STEPS),
+        stream.next_batch, name="xdeepfm")
+    per_step = counting_steps(torch, trainer)
+    hist = trainer.run(XDEEPFM_TRAIN_STEPS, log_every=1,
+                       print_fn=lambda line: log("    " + line))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {"cin_layer": len(cfg.cin_layers), "cin_weight_grad": 0}
+    h_prev = cfg.n_fields
+    for h in cfg.cin_layers:
+        for key, n in cin.backward_launches(h_prev, cfg.n_fields).items():
+            want[key] += n
+        h_prev = h
+    for lc in per_step:
+        check({k: lc[k] for k in want} == want,
+              f"[train] xdeepfm: CIN launches a step {nonzero(lc)}, want "
+              f"{want}")
+    check(all(np.isfinite(h["loss"]) and h["grad_norm"] > 0 for h in hist),
+          f"[train] xdeepfm: bad loss or grad norm {hist}")
+    times = [h["step_time_s"] for h in hist]
+    warm = statistics.median(times[1:])
+    log(f"  xdeepfm FULL ({cfg.total_rows:,} table rows) B={B}: "
+        f"{XDEEPFM_TRAIN_STEPS} AdamW steps, loss {hist[0]['loss']:.4f} -> "
+        f"{hist[-1]['loss']:.4f}; step {times[0] * 1e3:.1f} ms first, "
+        f"{warm * 1e3:.1f} ms median of the rest (host clock) = "
+        f"{B / warm:,.0f} rows/s; model FLOPs of a step (3 x forward) "
+        f"{3 * xcfg.cell_flops(cfg, B) / 1e12:.2f} TFLOP; peak {peak:.2f} GiB;"
+        f" CIN launches a step {want}")
+    del trainer, params
+    torch.cuda.empty_cache()
+    return per_step
+
+
+def xdeepfm_smoke_sgd(torch):
+    """The reference's ``test_training_reduces_loss`` on the card: SMOKE
+    xDeepFM, 60 plain SGD steps at lr 0.1 on batches of 64; the mean loss
+    of the last 5 steps must be 0.03 below the first 5's.  Returns the
+    run's launch counts."""
+    from repro_torch.checkpoint.store import tree_leaves
+    from repro_torch.configs import xdeepfm as xcfg
+    from repro_torch.data.synthetic import RecsysStream
+    from repro_torch.models import xdeepfm as xd
+    cfg = xcfg.SMOKE
+    dev = torch.device(DEVICE)
+    params = xd.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                            dev, requires_grad=True)
+    leaves = tree_leaves(params)
+    stream = RecsysStream(cfg.sizes(), cfg.offsets, batch=SMOKE_SGD["batch"],
+                          seed=0)
+
+    def run():
+        losses = []
+        for _ in range(SMOKE_SGD["steps"]):
+            batch = {k: torch.from_numpy(v).to(dev)
+                     for k, v in stream.next_batch().items()}
+            loss, _ = xd.loss_fn(params, batch)
+            grads = torch.autograd.grad(loss, leaves)
+            with torch.no_grad():
+                for p, gr in zip(leaves, grads):
+                    p -= SMOKE_SGD["lr"] * gr
+            losses.append(loss.detach())
+        return [float(x) for x in losses]
+    losses, lc = counted(torch, run)
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    log(f"  xdeepfm SMOKE, {SMOKE_SGD['steps']} SGD steps at lr "
+        f"{SMOKE_SGD['lr']}: mean loss of the first 5 {first:.4f}, of the "
+        f"last 5 {last:.4f} (must fall by 0.03); launches {nonzero(lc)}")
+    check(last < first - 0.03, "[train] xdeepfm SMOKE: the loss did not "
+                               "fall")
+    check(lc["cin_weight_grad"] == SMOKE_SGD["steps"] * len(cfg.cin_layers),
+          f"[train] xdeepfm SMOKE: launches {nonzero(lc)}")
+    return lc
+
+
+def lm_train_smoke_parity(torch):
+    """The five LM smoke configs in f32, card against the port's CPU run:
+    the same weights and ``TokenStream`` batch through ``loss_fn``, loss
+    and every gradient leaf within the f32 attention tolerance (2e-3, of
+    the leaf's largest gradient for the absolute part).  Returns the card
+    runs' launch counts."""
+    from repro_torch.checkpoint.store import tree_leaves
+    from repro_torch.configs import get_arch
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.models import transformer as tfm
+    dev = torch.device(DEVICE)
+    tol = ATTN_TOL["float32"]["rtol"]
+    runs = []
+    for arch in LM_TRAIN_ARCHS:
+        cfg = get_arch(arch).smoke
+        params = tfm.init_params(cfg, torch.Generator().manual_seed(0),
+                                 "cpu")
+        card = _tree_to(params, dev)
+        toks = torch.from_numpy(TokenStream(cfg.vocab, 40, 3, seed=1)
+                                .next_batch()["tokens"])
+
+        def loss_grads(tree, tokens):
+            leaves = tree_leaves(tree)
+            for t in leaves:
+                t.requires_grad_(True)
+            loss, _ = tfm.loss_fn(tree, {"tokens": tokens}, cfg)
+            return loss.detach(), torch.autograd.grad(loss, leaves)
+        want_loss, want = loss_grads(params, toks)
+        (got_loss, got), lc = counted(torch, lambda: loss_grads(
+            card, toks.to(dev)))
+        check(lc["flash_attention_lse"] == lc["flash_attention_bwd"] ==
+              cfg.n_layers, f"[train] {arch} smoke: launches {nonzero(lc)}")
+        worst = 0.0
+        ok = bool(torch.allclose(got_loss.cpu(), want_loss, rtol=tol,
+                                 atol=tol))
+        for a, b in zip(got, want, strict=True):
+            scale = float(b.abs().max())
+            worst = max(worst, float((a.cpu() - b).abs().max())
+                        / max(scale, 1e-30))
+            ok &= bool(torch.allclose(a.cpu(), b, rtol=tol,
+                                      atol=tol * scale))
+        log(f"  {arch} smoke f32: loss card {float(got_loss):.6f} vs CPU "
+            f"{float(want_loss):.6f}; {len(got)} gradient leaves, worst "
+            f"max |err| / max |grad| {worst:.3e} (rtol {tol:g}, atol {tol:g}"
+            f" x max: {'ok' if ok else 'FAILED'}); B6 launches "
+            f"{lc['flash_attention_lse']} forward, "
+            f"{lc['flash_attention_bwd']} backward")
+        check(ok, f"[train] {arch} smoke: the card's loss or gradients "
+                  f"differ from the CPU's")
+        runs.append(lc)
+    return runs
+
+
+def train_launcher(torch):
+    """``launch/train.main`` on the card: qwen3-32b's smoke config, then
+    xDeepFM's with checkpoints, and again with ``--resume auto`` from
+    them.  Returns the runs' launch counts."""
+    import contextlib
+    import io
+    import tempfile
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train
+
+    def main(argv):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc, lc = counted(torch, lambda: train.main(argv))
+        return rc, lc, out.getvalue()
+    runs = []
+    steps = 10
+    rc, lc, text = main(["--arch", "qwen3-32b", "--device", DEVICE,
+                         "--steps", str(steps)])
+    n = get_arch("qwen3-32b").smoke.n_layers
+    log(f"  train --arch qwen3-32b --device {DEVICE} --steps {steps}: rc "
+        f"{rc}, {text.strip().splitlines()[-1]!r}; launches {nonzero(lc)}")
+    check(rc == 0 and f"done on {DEVICE}" in text
+          and lc["flash_attention_bwd"] == steps * n,
+          f"[train] the train launcher failed on the card: {text!r}")
+    runs.append(lc)
+    with tempfile.TemporaryDirectory() as ck:
+        argv = ["--arch", "xdeepfm", "--device", DEVICE, "--steps", "4",
+                "--batch", "64", "--ckpt-dir", ck, "--ckpt-every", "2"]
+        for extra in ([], ["--resume", "auto"]):
+            rc, lc, text = main(argv + extra)
+            lines = text.strip().splitlines()
+            log(f"  train --arch xdeepfm --ckpt-dir ... {' '.join(extra)}: "
+                f"rc {rc}, {lines[0]!r} .. {lines[-1]!r}; launches "
+                f"{nonzero(lc)}")
+            check(rc == 0 and lc["cin_weight_grad"] == 4 * 2
+                  and (not extra or "resumed from step 4" in text),
+                  f"[train] the xdeepfm launcher run failed: {text!r}")
+            runs.append(lc)
+    return runs
+
+
+def train_phase(torch):
+    """Training on the card: qwen3-32b at full width cut to
+    ``TRAIN_LAYERS`` layers and deepseek-moe-16b cut to
+    ``TRAIN_MOE_LAYERS`` through ``Trainer`` (``lm_train_full``); the FULL
+    xDeepFM at its training batch; the SMOKE xDeepFM's SGD run; the five
+    LM smoke configs in f32 against the CPU; the ``train`` launcher.
+    Returns the counted runs' launch counts."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    runs = []
+    qwen = dataclasses.replace(get_arch("qwen3-32b").full,
+                               n_layers=TRAIN_LAYERS)
+    runs += lm_train_full(torch, qwen, TRAIN_SHAPE)
+    moe = dataclasses.replace(get_arch("deepseek-moe-16b").full,
+                              n_layers=TRAIN_MOE_LAYERS)
+    runs += lm_train_full(torch, moe, TRAIN_MOE_SHAPE)
+    runs += xdeepfm_train_full(torch)
+    runs.append(xdeepfm_smoke_sgd(torch))
+    runs += lm_train_smoke_parity(torch)
+    runs += train_launcher(torch)
+    torch.cuda.empty_cache()
+    return runs
+
+
 KERNELS = {
     "frontier_relax": (
         "src/repro_torch/kernels/csrc/frontier_relax.cu",
@@ -3273,8 +3901,16 @@ KERNELS = {
                         "src/repro/kernels/segment_min.py:33"),
     "cin_layer": ("src/repro_torch/kernels/csrc/cin.cu",
                   "src/repro/kernels/cin.py:42"),
+    # the backward of B5's weights: the reference's kernel has none
+    "cin_weight_grad": ("src/repro_torch/kernels/csrc/cin.cu",
+                        "src/repro/kernels/cin.py:42"),
     "flash_attention": ("src/repro_torch/kernels/csrc/flash_attn.cu",
                         "src/repro/kernels/flash_attn.py:72"),
+    "flash_attention_lse": ("src/repro_torch/kernels/csrc/flash_attn.cu",
+                            "src/repro/kernels/flash_attn.py:72"),
+    # B6's backward: the reference's kernel has none
+    "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attn_bwd.cu",
+                            "src/repro/kernels/flash_attn.py:72"),
 }
 
 
@@ -3316,6 +3952,8 @@ def main() -> int:
     rec = kernel_phase(torch, pt)
     log("[kernels] cin_layer and flash_attention vs their plain versions")
     model_kernel_phase(torch, rec)
+    log("[kernels] the backward kernels vs their plain versions")
+    bwd_kernel_phase(torch, rec)
     # launch counts: set to 0 right before each main-path run and read
     # right after (solve_timed, counted)
     def phase(tag, what, fn):
@@ -3352,7 +3990,7 @@ def main() -> int:
     runs_legacy = phase("legacy", "run_sssp, run_sssp_ell, "
                         "run_sssp_traced", lambda: legacy_phase(torch, pt,
                                                                 runs))
-    phase("parity", "card vs the port's CPU solve, 2^13 vertices",
+    phase("parity", "card vs the port's CPU solve, 2^12 vertices",
           lambda: cpu_parity_phase(torch, pt))
     xd_launch = phase("xdeepfm", "scoring at the FULL config",
                       lambda: xdeepfm_phase(torch))
@@ -3361,6 +3999,10 @@ def main() -> int:
     runs_lm = phase("lm", "LM serving: qwen3-32b and deepseek-moe-16b at "
                     "full width, smoke configs against the CPU",
                     lambda: lm_phase(torch, rec))
+    runs_train = phase("train", "training: qwen3-32b and deepseek-moe-16b "
+                       "at full width, xDeepFM FULL, smoke configs against "
+                       "the CPU, the train launcher",
+                       lambda: train_phase(torch))
     if args.profile:
         log("[profile] torch.profiler over the first rounds of each route")
         profile_phase(torch, pt)
@@ -3369,7 +4011,8 @@ def main() -> int:
     launch_runs = [k["launches"] for r in runs.values() for k in r.values()]
     for lc in (launch_runs + runs_dyn + runs_p2p + runs_bidi + runs_fleet
                + runs_serve + runs_launch + runs_base + runs_dist
-               + runs_legacy + [xd_launch, attn_launch] + runs_lm):
+               + runs_legacy + [xd_launch, attn_launch] + runs_lm
+               + runs_train):
         for k, v in lc.items():
             main_launch[k] += v
     kernels = []

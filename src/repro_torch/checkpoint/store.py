@@ -56,6 +56,16 @@ def map_leaves(fn, tree):
     return _rebuild(tree, iter([fn(x) for _, x in _flatten(tree)]))
 
 
+def tree_leaves(tree) -> list:
+    """The leaves of ``tree`` in JAX's order (dict keys sorted)."""
+    return [x for _, x in _flatten(tree)]
+
+
+def tree_unflatten(like, leaves):
+    """``like``'s structure with ``leaves`` (in ``tree_leaves`` order)."""
+    return _rebuild(like, iter(leaves))
+
+
 def _to_numpy(leaf) -> tuple[np.ndarray, str]:
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()

@@ -1,10 +1,10 @@
 """Model configurations of the port (``repro/configs``).
 
-``xdeepfm`` holds the xDeepFM configs.  The LM architectures register
-here: ``get_arch(name)`` / ``list_archs()`` resolve an ``--arch`` id to
-its ``ArchSpec`` (full and smoke ``LMConfig``, the reference's dry-run
-shape names).  The reference's ``build_cell`` (an XLA lowering of a
-dry-run cell) has no counterpart.
+The five LM architectures (kind ``"lm"``) and xDeepFM (``xdeepfm``,
+kind ``"recsys"``) register here: ``get_arch(name)`` / ``list_archs()``
+resolve an ``--arch`` id to its ``ArchSpec`` (full and smoke configs,
+the reference's dry-run shape names).  The reference's ``build_cell``
+(an XLA lowering of a dry-run cell) has no counterpart.
 """
 from __future__ import annotations
 
@@ -14,7 +14,7 @@ import dataclasses
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     name: str
-    kind: str                       # lm
+    kind: str                       # lm | recsys
     full: object                    # full-size model config
     smoke: object                   # reduced config for CPU smoke tests
     shapes: tuple[str, ...]         # the reference's dry-run cell names
@@ -49,8 +49,7 @@ def lm_shapes_for(cfg) -> tuple[str, ...]:
 
 
 def _ensure_loaded() -> None:
-    if _REGISTRY:
-        return
+    # every module, whatever a caller imported first
     from repro_torch.configs import (  # noqa: F401
         command_r_35b, command_r_plus_104b, deepseek_moe_16b,
-        llama4_maverick_400b_a17b, qwen3_32b)
+        llama4_maverick_400b_a17b, qwen3_32b, xdeepfm)

@@ -3,10 +3,12 @@
 ``FULL`` is the paper's model (arXiv:1803.05170): 39 sparse fields,
 embed_dim 10, CIN 200-200-200, MLP 400-400, over a Criteo-scale
 vocabulary of 18,916,161 rows (a few huge fields and a long tail).
-``SHAPES`` are the reference's cells; the serving port runs
-``serve_p99``, ``serve_bulk`` and ``retrieval_cand``.  The reference's
-XLA lowering of a cell (``build_cell``) has no counterpart here.
+``SHAPES`` are the reference's cells: scoring runs ``serve_p99``,
+``serve_bulk`` and ``retrieval_cand``, training ``train_batch``.  The
+arch registers as ``xdeepfm``, kind ``"recsys"``.  The reference's XLA
+lowering of a cell (``build_cell``) has no counterpart here.
 """
+from repro_torch.configs import ArchSpec, register
 from repro_torch.models.xdeepfm import XDeepFMConfig
 
 _BIG = (10_000_000, 5_000_000, 2_000_000, 1_000_000, 500_000)
@@ -24,6 +26,12 @@ SHAPES = {
     "retrieval_cand": dict(batch=1, n_cand=1_000_000, kind="retrieval"),
 }
 VALUES_PER_FIELD = 3
+
+ARCH = register(ArchSpec(
+    name="xdeepfm", kind="recsys", full=FULL, smoke=SMOKE,
+    shapes=tuple(SHAPES),
+    notes="embedding bag (index_select + sum) + CIN kernel B5",
+))
 
 
 def cell_flops(cfg: XDeepFMConfig, batch: int) -> float:

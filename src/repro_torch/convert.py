@@ -9,7 +9,9 @@ tables, ``fleet_from_arrays``, ``stacked_delta_from_arrays`` and
 ``fleet_state_from_arrays`` for a ``GraphFleet``, a stacked delta and a
 ``FleetSolver.state_dict()``, and ``xdeepfm_params_from_arrays`` and
 ``lm_params_from_arrays`` for a parameter tree.  So both packages can be
-run on identical inputs.
+run on identical inputs.  ``lm_params_to_arrays`` goes back, so that an
+LM tree's gradients compare with the reference's leaf by leaf (the
+xDeepFM trees have one structure in both packages).
 """
 from __future__ import annotations
 
@@ -173,6 +175,28 @@ def lm_params_from_arrays(params, cfg, device=None) -> dict:
         s, sub = divmod(i, cfg.moe_every)
         layers.append(tree(params["layers"][_SUB_NAMES[sub]],
                            lambda a, s=s: np.asarray(a)[s]))
+    return {"embed": leaf(params["embed"]),
+            "lm_head": leaf(params["lm_head"]),
+            "final_norm": leaf(params["final_norm"]), "layers": layers}
+
+
+def lm_params_to_arrays(params, cfg) -> dict:
+    """The inverse of ``lm_params_from_arrays``: the port's LM tree (or a
+    tree of its shape, such as its gradients) as the reference's, with
+    ``layers[name][leaf]`` stacked per super-block, every leaf a float32
+    numpy array (bfloat16 widens exactly; numpy has no bfloat16)."""
+    def leaf(t):
+        return t.detach().float().cpu().numpy()
+
+    def stack(trees):
+        if isinstance(trees[0], dict):
+            return {k: stack([t[k] for t in trees]) for k in trees[0]}
+        return np.stack([leaf(t) for t in trees])
+
+    layers = {}
+    for sub in range(cfg.moe_every):
+        layers[_SUB_NAMES[sub]] = stack(
+            params["layers"][sub::cfg.moe_every])
     return {"embed": leaf(params["embed"]),
             "lm_head": leaf(params["lm_head"]),
             "final_norm": leaf(params["final_norm"]), "layers": layers}

@@ -1,13 +1,44 @@
-"""Seeded synthetic data (port of ``RecsysStream`` in
+"""Seeded synthetic data (port of ``TokenStream`` and ``RecsysStream`` in
 ``repro/data/synthetic.py``).
 
 numpy only, so the same seed gives the same arrays as the reference;
-callers move them to a device.  ``TokenStream`` and ``cora_like`` are not
-ported yet.
+callers move them to a device.  ``cora_like`` is not ported yet.
 """
 from __future__ import annotations
 
 import numpy as np
+
+
+class TokenStream:
+    """LM token batches with learnable structure: a hidden permutation pi
+    of the vocabulary and the rule ``t[i+1] = pi[(t[i] + t[i-1]) % V]``,
+    with uniform noise on a ``noise`` share of the positions."""
+
+    def __init__(self, vocab: int, seq_len: int, batch: int, seed: int = 0,
+                 noise: float = 0.05):
+        self.vocab, self.seq, self.batch = vocab, seq_len, batch
+        self.rng = np.random.default_rng(seed)
+        self.pi = np.random.default_rng(seed + 1).permutation(vocab)
+        self.noise = noise
+
+    def next_batch(self) -> dict:
+        """``tokens`` int32[B, S + 1]."""
+        B, S, V = self.batch, self.seq, self.vocab
+        toks = np.empty((B, S + 1), np.int32)
+        toks[:, 0] = self.rng.integers(0, V, B)
+        toks[:, 1] = self.rng.integers(0, V, B)
+        for i in range(2, S + 1):
+            nxt = self.pi[(toks[:, i - 1] + toks[:, i - 2]) % V]
+            noise = self.rng.random(B) < self.noise
+            toks[:, i] = np.where(noise, self.rng.integers(0, V, B), nxt)
+        return {"tokens": toks}
+
+    def shard_for_host(self, batch: dict, host_id: int, n_hosts: int):
+        """Host ``host_id``'s rows of the global batch: every host of a
+        data-parallel input pipeline materialises only its own slice."""
+        tok = batch["tokens"]
+        per = tok.shape[0] // n_hosts
+        return {"tokens": tok[host_id * per:(host_id + 1) * per]}
 
 
 class RecsysStream:

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` is compiled by its own ``nvcc`` process (all of
 them started together) for ``sm_90a`` into a shared library with a plain
 C interface, ``build/repro_torch/lib<name>-<hash>.so`` under the checkout
-(the hash is of the source and flags, so an edited source rebuilds), and
+(the hash is of the source, the shared ``csrc/*.cuh`` headers and the
+flags, so an edited source rebuilds), and
 loaded with ``ctypes``.  Nothing is compiled at import: the first wrapper
 call on a CUDA tensor builds everything, or ``build_all()`` does it up
 front.
@@ -42,8 +43,16 @@ SIGNATURES = {
                         (_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P)),
     "cin_layer": ("cin", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _I, _P)),
+    "cin_weight_grad": ("cin", (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _I, _P)),
     "flash_attention": ("flash_attn",
                         (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
+    "flash_attention_lse": ("flash_attn",
+                            (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                             _P)),
+    "flash_attention_bwd": ("flash_attn_bwd",
+                            (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                             _I, _I, _I, _I, _P)),
 }
 SOURCES = tuple(sorted({src for src, _ in SIGNATURES.values()}))
 
@@ -56,7 +65,10 @@ LAUNCHES: dict[str, int] = {
     "masked_min": 0,
     "masked_min_pair": 0,
     "cin_layer": 0,
+    "cin_weight_grad": 0,
     "flash_attention": 0,
+    "flash_attention_lse": 0,
+    "flash_attention_bwd": 0,
 }
 
 _libs: dict[str, ctypes.CDLL] = {}
@@ -89,6 +101,8 @@ def nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):     # shared helpers
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

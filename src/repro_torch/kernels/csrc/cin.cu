@@ -55,6 +55,25 @@
 // Bound on an H100: operations, 2*K*H*M*D*B FLOPs (31 MFLOP a sample at
 // H = K = 200, M = 39, D = 10) at 67 TFLOP/s f32, or three times that at
 // 495 TFLOP/s TF32 on the tensor cores; bytes 4*(H + M + K)*D a sample.
+//
+// The layer's backward (kernels/cin.py) takes its input gradients from
+// this kernel with permuted weights, and its weight gradient from
+// cin_weight_grad below, which replaces no TPU kernel (the reference's
+// CIN has no backward):
+//
+//     dW[k, h, m] = sum_{b, d} g[b, k, d] * x_k[b, h, d] * x_0[b, m, d]
+//
+// the GEMM dW^T[j, k] = sum_c Z[c, j] G[c, k] over the B * D columns c =
+// b * D + d (655,360 at B = 65,536), with Z = x_k * x_0 formed in
+// registers as in the forward and G[c, k] = g[b, k, d].  A block owns
+// 128 values of j (8 warps of 16) by 40 rows k and walks chunks of 8
+// samples (8 * D columns, D k-steps of mma.sync.m16n8k8 3xTF32, fresh
+// fragments added into Kahan pairs as in the forward); the chunk's x_0,
+// its few x_k rows and its 40 rows of g come in by cp.async,
+// double-buffered.  The chunks split into S parts when the tiles alone
+// would not fill the card; the parts' partial sums are added in a fixed
+// order in f64 by a second kernel.  Bound: the same operations as the
+// forward; bytes 4*(H + M + K)*D a sample plus 4*K*H*M.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -295,6 +314,172 @@ __global__ void sum_parts_kernel(const float* __restrict__ part,
   out[((c / D) * K + k) * D + c % D] = (float)acc;
 }
 
+constexpr int kGWarps = 8;
+constexpr int kGThreads = 32 * kGWarps;
+constexpr int kGJt = 16 * kGWarps;         // 128 values of j a block
+constexpr int kGBc = 8;                    // samples a chunk: 8 * D columns
+
+__global__ void __launch_bounds__(kGThreads, 1)
+cin_wgrad_kernel(const float* __restrict__ gr, const float* __restrict__ xk,
+                 const float* __restrict__ x0, float* __restrict__ dw,
+                 float* __restrict__ part, int B, int H, int M, int D,
+                 int K, int n_jtiles, int n_ktiles, int cps, int n_chunks,
+                 int nh) {
+  extern __shared__ __align__(16) float smem[];
+  const int st_x0 = kGBc * M * D;          // a stage: x_0 of 8 samples,
+  const int st_xk = kGBc * nh * D;         // their x_k rows h0 .. + nh,
+  const int st_g = kGBc * kKt * D;         // and their g rows k0 .. + 40
+  const int stage_f = st_x0 + st_xk + st_g;
+  int* ctab = reinterpret_cast<int*>(smem + 2 * stage_f);   // [8 D][3]
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  int bid = blockIdx.x;
+  const int jt = bid % n_jtiles;
+  bid /= n_jtiles;
+  const int kt = bid % n_ktiles;
+  const int s = bid / n_ktiles;            // part of the reduction
+  const int HM = H * M;
+  const int j0 = jt * kGJt;
+  const int k0 = kt * kKt;
+  const int h0 = j0 / M;
+  const int ch0 = s * cps;
+  const int n_ch = min(cps, n_chunks - ch0);
+  const int ncol = kGBc * D;
+
+  // the thread's A rows j and j + 8: offsets of their x_0 and x_k values
+  // in a column's sample, and whether they exist
+  int o0[2], ok[2];
+  float live[2];
+#pragma unroll
+  for (int q = 0; q < 2; ++q) {
+    const int j = j0 + warp * 16 + g + 8 * q;
+    const int h = j < HM ? j / M : h0;
+    o0[q] = j < HM ? (j - h * M) * D : 0;
+    ok[q] = (h - h0) * D;
+    live[q] = j < HM ? 1.f : 0.f;
+  }
+  // column c = b * D + d of a chunk: offsets of its sample in the stage
+  for (int c = tid; c < ncol; c += kGThreads) {
+    const int bl = c / D;
+    const int d = c % D;
+    ctab[3 * c] = bl * M * D + d;
+    ctab[3 * c + 1] = bl * nh * D + d;
+    ctab[3 * c + 2] = bl * kKt * D + d;
+  }
+  auto stage = [&](int ch, int st) {
+    const long long b0 = (long long)ch * kGBc;
+    const int nb = (int)min((long long)kGBc, B - b0);
+    float* xs0 = smem + st * stage_f;
+    float* xsk = xs0 + st_x0;
+    float* gs = xsk + st_xk;
+    for (int i = tid; i < st_x0; i += kGThreads) {
+      const bool in = i < nb * M * D;
+      cp_async4(xs0 + i, x0 + (in ? b0 * M * D + i : 0), in);
+    }
+    for (int i = tid; i < st_xk; i += kGThreads) {
+      const int bl = i / (nh * D);
+      const int r = i % (nh * D);
+      const bool in = bl < nb && h0 + r / D < H;
+      cp_async4(xsk + i, xk + (in ? ((b0 + bl) * H + h0) * D + r : 0), in);
+    }
+    for (int i = tid; i < st_g; i += kGThreads) {
+      const int bl = i / (kKt * D);
+      const int r = i % (kKt * D);
+      const bool in = bl < nb && k0 + r / D < K;
+      cp_async4(gs + i, gr + (in ? ((b0 + bl) * K + k0) * D + r : 0), in);
+    }
+    cp_commit();
+  };
+
+  float tot[kNi][4], ncm[kNi][4];
+#pragma unroll
+  for (int b = 0; b < kNi; ++b)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) tot[b][e] = ncm[b][e] = 0.f;
+
+  if (n_ch > 0) stage(ch0, 0);
+  cp_wait_all();
+  __syncthreads();
+  for (int ch = 0; ch < n_ch; ++ch) {
+    const int st = ch & 1;
+    if (ch + 1 < n_ch) stage(ch0 + ch + 1, st ^ 1);
+    const float* xs0 = smem + st * stage_f;
+    const float* xsk = xs0 + st_x0;
+    const float* gs = xsk + st_xk;
+    for (int kk = 0; kk < D; ++kk) {       // 8 columns a k-step
+      // A = Z^T: a0 (row j, column t), a1 (j + 8, t), a2 (j, t + 4),
+      // a3 (j + 8, t + 4); B = G: b0 (column t, row k0 + 8 b + g),
+      // b1 (column t + 4, the same k)
+      uint32_t ah[4], al[4];
+      int cg[2];
+#pragma unroll
+      for (int q = 0; q < 2; ++q) {
+        const int c = 8 * kk + t + 4 * q;
+        const int c0 = ctab[3 * c];
+        const int ck = ctab[3 * c + 1];
+        cg[q] = ctab[3 * c + 2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          split(live[r] * xsk[ck + ok[r]] * xs0[c0 + o0[r]], ah[2 * q + r],
+                al[2 * q + r]);
+      }
+      uint32_t bh[kNi][2], bl[kNi][2];
+#pragma unroll
+      for (int b = 0; b < kNi; ++b)
+#pragma unroll
+        for (int q = 0; q < 2; ++q)
+          split(gs[cg[q] + (b * 8 + g) * D], bh[b][q], bl[b][q]);
+      float f[kNi][4];
+#pragma unroll
+      for (int b = 0; b < kNi; ++b)
+        mma(f[b], al, bh[b][0], bh[b][1], ncm[b]);
+#pragma unroll
+      for (int b = 0; b < kNi; ++b) mma(f[b], ah, bl[b][0], bl[b][1], f[b]);
+#pragma unroll
+      for (int b = 0; b < kNi; ++b) mma(f[b], ah, bh[b][0], bh[b][1], f[b]);
+#pragma unroll
+      for (int b = 0; b < kNi; ++b)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {      // Kahan, f = term - compensation
+          const float u = tot[b][e] + f[b][e];
+          ncm[b][e] = f[b][e] - (u - tot[b][e]);
+          tot[b][e] = u;
+        }
+    }
+    cp_wait_all();
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int b = 0; b < kNi; ++b)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = j0 + warp * 16 + g + (e >> 1) * 8;
+      const int k = k0 + b * 8 + 2 * t + (e & 1);
+      if (j >= HM || k >= K) continue;
+      const float x = tot[b][e] + ncm[b][e];
+      if (part)
+        part[((long long)s * K + k) * HM + j] = x;
+      else
+        dw[(long long)k * HM + j] = x;
+    }
+}
+
+// out[i] = sum over s of part[s, i], in order, in f64
+__global__ void sum_splits_kernel(const float* __restrict__ part,
+                                  float* __restrict__ out, int S,
+                                  long long n) {
+  const long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  double acc = 0.0;
+  for (int s = 0; s < S; ++s) acc += part[(long long)s * n + i];
+  out[i] = (float)acc;
+}
+
 }  // namespace
 
 // x_k [B, H, D], x_0 [B, M, D], w [K, H, M], out [B, K, D], float32.  The
@@ -343,5 +528,49 @@ extern "C" int cin_layer(const float* xk, const float* x0, const float* w,
   const long long n_out = (long long)K * N;
   sum_parts_kernel<<<(unsigned)((n_out + 255) / 256), 256, 0, st>>>(
       part, out, S, K, N, D);
+  return (int)cudaGetLastError();
+}
+
+// g [B, K, D], x_k [B, H, D], x_0 [B, M, D] -> dw [K, H, M], float32: the
+// weight gradient of cin_layer for the upstream gradient g.  The
+// ceil(B / 8) chunks of 8 samples are split into S parts of cps chunks
+// each, (S - 1) * cps < chunks <= S * cps; when S > 1 part is S * K * H * M
+// floats of scratch from the caller (else null).
+extern "C" int cin_weight_grad(const float* g, const float* xk,
+                               const float* x0, float* dw, float* part,
+                               int B, int H, int M, int D, int K, int S,
+                               int cps, void* stream) {
+  if (H <= 0 || M <= 0 || K <= 0) return (int)cudaSuccess;
+  if (B < 0 || D <= 0 || (long long)H * M >= (1 << 30) ||
+      (long long)B * D >= (1LL << 40))
+    return (int)cudaErrorInvalidValue;
+  const int n_chunks = (B + kGBc - 1) / kGBc;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const long long n_out = (long long)K * H * M;
+  if (n_chunks == 0)
+    return (int)cudaMemsetAsync(dw, 0, n_out * sizeof(float), st);
+  if (S < 1 || cps < 1 || (long long)S * cps < n_chunks ||
+      (S > 1 && ((long long)(S - 1) * cps >= n_chunks || part == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const int nh = (kGJt - 1) / M + 2;
+  const size_t smem =
+      (size_t)2 * kGBc * D * (M + nh + kKt) * sizeof(float) +
+      (size_t)3 * kGBc * D * sizeof(int);
+  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
+  const int n_jtiles = (H * M + kGJt - 1) / kGJt;
+  const int n_ktiles = (K + kKt - 1) / kKt;
+  const long long blocks = (long long)n_jtiles * n_ktiles * S;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaFuncSetAttribute(
+      cin_wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cin_wgrad_kernel<<<(unsigned)blocks, kGThreads, smem, st>>>(
+      g, xk, x0, dw, S > 1 ? part : nullptr, B, H, M, D, K, n_jtiles,
+      n_ktiles, cps, n_chunks, nh);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || S == 1) return (int)err;
+  sum_splits_kernel<<<(unsigned)((n_out + 255) / 256), 256, 0, st>>>(
+      part, dw, S, n_out);
   return (int)cudaGetLastError();
 }

@@ -41,14 +41,17 @@
 // - Causal: key tiles above the diagonal are skipped and only the
 //   diagonal tiles are masked; the heaviest query tiles launch first.
 //
+// - With an lse pointer the kernel also writes each row's log-sum-exp of
+//   its scaled scores, ln(sum_k exp(q.k / sqrt(d))), f32 [BH, Sq]: the
+//   training forward keeps it for the backward (flash_attn_bwd.cu).
+//
 // Bound on an H100: operations, 2 * Sq * Sk * d multiply-adds a head
 // (half that when causal), at 989 TFLOP/s dense bf16, three times that
 // work in f32; bytes 4 * S * d * sizeof(T) a head.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "bf16_mma.cuh"
 
 namespace {
 
@@ -59,78 +62,7 @@ template <typename T>
 constexpr int kMT = sizeof(T) == 4 ? 1 : 2;
 constexpr int kBk = 64;            // keys a shared-memory tile
 constexpr float kNegInf = -1e30f;
-constexpr double kLog2e = 1.4426950408889634;
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
-                                              const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// d += a b: a 16x16 (row), b 16x8 (col), bf16; d 16x8 f32
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
-  asm(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 16 bytes global -> shared, zero-filled when !full
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(full ? 16 : 0));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-// bf16 pair (x0 in the low half)
-__device__ __forceinline__ uint32_t pack(float x0, float x1) {
-  return bits(__floats2bfloat162_rn(x0, x1));
-}
-// hi = bf16(x), lo = bf16(x - hi), for a pair
-__device__ __forceinline__ void split(float x0, float x1, uint32_t& hi,
-                                      uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  hi = bits(h);
-  lo = pack(x0 - hf.x, x1 - hf.y);
-}
-
-__device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-  return __bfloat162float(p[0]);
-}
+constexpr float kLn2 = 0.6931471805599453f;
 
 // One block an SM as the floor lets ptxas use up to 255 registers a
 // thread, to keep ldmatrix loads ahead of the products; two 128-thread
@@ -138,8 +70,9 @@ __device__ __forceinline__ float ld(const __nv_bfloat16* p) {
 template <typename T, int DMAX>
 __global__ void __launch_bounds__(32 * kWarps<T>, 1)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ o, int BH, int Sq,
-             int Sk, int d, int causal, int vec, float scale_log2) {
+             const T* __restrict__ v, T* __restrict__ o,
+             float* __restrict__ lse, int BH, int Sq, int Sk, int d,
+             int causal, int vec, float scale_log2) {
   constexpr bool kF32 = sizeof(T) == 4;
   constexpr int MT = kMT<T>;
   constexpr int kThreads = 32 * kWarps<T>;
@@ -440,6 +373,9 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int r = 0; r < 2; ++r) {
       l[mt][r] += __shfl_xor_sync(0xffffffffu, l[mt][r], 1);
       l[mt][r] += __shfl_xor_sync(0xffffffffu, l[mt][r], 2);
+      if (lse != nullptr && t == 0)       // m, l in log2 units
+        lse[bh * Sq + row0 + 16 * mt + 8 * r] =
+            (m[mt][r] + log2f(l[mt][r])) * kLn2;
       l[mt][r] = 1.f / fmaxf(l[mt][r], 1e-30f);
     }
 #pragma unroll
@@ -459,7 +395,7 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DMAX>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   int BH, int Sq, int Sk, int d, int causal,
+                   float* lse, int BH, int Sq, int Sk, int d, int causal,
                    cudaStream_t s) {
   const long long blocks = (long long)BH * (Sq / (16 * kMT<T> * kWarps<T>));
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
@@ -476,18 +412,35 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   const float scale_log2 = (float)(1.0 / sqrt((double)d) * kLog2e);
   flash_kernel<T, DMAX><<<(unsigned)blocks, 32 * kWarps<T>, smem, s>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), BH, Sq, Sk, d, causal,
-      vec, scale_log2);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, BH, Sq, Sk, d,
+      causal, vec, scale_log2);
   return cudaGetLastError();
 }
 
 template <typename T>
 cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
-                     int BH, int Sq, int Sk, int d, int causal,
+                     float* lse, int BH, int Sq, int Sk, int d, int causal,
                      cudaStream_t s) {
-  if (d <= 32) return launch<T, 32>(q, k, v, o, BH, Sq, Sk, d, causal, s);
-  if (d <= 64) return launch<T, 64>(q, k, v, o, BH, Sq, Sk, d, causal, s);
-  return launch<T, 128>(q, k, v, o, BH, Sq, Sk, d, causal, s);
+  if (d <= 32)
+    return launch<T, 32>(q, k, v, o, lse, BH, Sq, Sk, d, causal, s);
+  if (d <= 64)
+    return launch<T, 64>(q, k, v, o, lse, BH, Sq, Sk, d, causal, s);
+  return launch<T, 128>(q, k, v, o, lse, BH, Sq, Sk, d, causal, s);
+}
+
+int forward(const void* q, const void* k, const void* v, void* o, float* lse,
+            int BH, int Sq, int Sk, int d, int causal, int bf16,
+            void* stream) {
+  if (d < 1 || d > 128 || Sq % 128 != 0 || Sk % kBk != 0 ||
+      (causal && Sq != Sk))
+    return (int)cudaErrorInvalidValue;
+  if (BH <= 0 || Sq <= 0) return (int)cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, lse, BH, Sq, Sk, d, causal,
+                                     s)
+           : dispatch<float>(q, k, v, o, lse, BH, Sq, Sk, d, causal, s);
+  return (int)err;
 }
 
 }  // namespace
@@ -498,13 +451,14 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* o,
 extern "C" int flash_attention(const void* q, const void* k, const void* v,
                                void* o, int BH, int Sq, int Sk, int d,
                                int causal, int bf16, void* stream) {
-  if (d < 1 || d > 128 || Sq % 128 != 0 || Sk % kBk != 0 ||
-      (causal && Sq != Sk))
-    return (int)cudaErrorInvalidValue;
-  if (BH <= 0 || Sq <= 0) return (int)cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      bf16 ? dispatch<__nv_bfloat16>(q, k, v, o, BH, Sq, Sk, d, causal, s)
-           : dispatch<float>(q, k, v, o, BH, Sq, Sk, d, causal, s);
-  return (int)err;
+  return forward(q, k, v, o, nullptr, BH, Sq, Sk, d, causal, bf16, stream);
+}
+
+// The same, and lse [BH, Sq] float32: each row's log-sum-exp of its
+// scaled scores, for the backward.
+extern "C" int flash_attention_lse(const void* q, const void* k,
+                                   const void* v, void* o, float* lse,
+                                   int BH, int Sq, int Sk, int d, int causal,
+                                   int bf16, void* stream) {
+  return forward(q, k, v, o, lse, BH, Sq, Sk, d, causal, bf16, stream);
 }

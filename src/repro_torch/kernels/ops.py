@@ -7,7 +7,8 @@ plain PyTorch.  The reductions that were Pallas kernels in the
 reference go through the kernel wrappers, which pick the CUDA kernel or
 the plain version by the tensors' device.  There is no ``use_pallas``
 switch: the device decides.  ``cin_layer`` and ``flash_attention`` are
-the model ops (B5, B6).
+the model ops (B5, B6), differentiable through their wrappers' backward
+kernels.
 """
 from __future__ import annotations
 

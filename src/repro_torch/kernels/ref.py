@@ -138,6 +138,52 @@ def cin_layer_ref(x_k: torch.Tensor, x_0: torch.Tensor,
     return torch.einsum("khm,bhmd->bkd", w, z)
 
 
+def cin_weight_grad_ref(g: torch.Tensor, x_k: torch.Tensor,
+                        x_0: torch.Tensor) -> torch.Tensor:
+    """The CIN layer's weight gradient for the upstream gradient ``g``
+    [B, K, D] -> [K, H, M]: ``dw[k, h, m] = sum_{b, d} g[b, k, d] *
+    x_k[b, h, d] * x_0[b, m, d]``, through the outer product as above."""
+    z = torch.einsum("bhd,bmd->bhmd", x_k, x_0)
+    return torch.einsum("bkd,bhmd->khm", g, z)
+
+
+def cin_layer_bwd_ref(x_k: torch.Tensor, x_0: torch.Tensor, w: torch.Tensor,
+                      g: torch.Tensor):
+    """Gradients ``(dx_k, dx_0, dw)`` of ``cin_layer_ref`` for the upstream
+    gradient ``g`` [B, K, D], each written out from the definition:
+    ``dx_k[b, h, d] = sum_{k, m} g[b, k, d] w[k, h, m] x_0[b, m, d]``,
+    ``dx_0[b, m, d] = sum_{k, h} g[b, k, d] w[k, h, m] x_k[b, h, d]``."""
+    dx_k = torch.einsum("bkd,khm,bmd->bhd", g, w, x_0)
+    dx_0 = torch.einsum("bkd,khm,bhd->bmd", g, w, x_k)
+    return dx_k, dx_0, cin_weight_grad_ref(g, x_k, x_0)
+
+
+def _scaled_logits(q: torch.Tensor, k: torch.Tensor, causal: bool):
+    """float32 ``q k^T / sqrt(d)`` with masked scores ``-1e30``, and the
+    causal keep mask (``q_pos >= k_pos``; None when not causal)."""
+    d = q.shape[-1]
+    qf = q.float() * (1.0 / d ** 0.5)
+    logits = torch.einsum("bhqd,bhkd->bhqk", qf, k.float())
+    keep = None
+    if causal:
+        s_q, s_k = q.shape[2], k.shape[2]
+        keep = torch.ones((s_q, s_k), dtype=torch.bool,
+                          device=q.device).tril()
+        logits = torch.where(keep, logits, -1e30)
+    return logits, keep
+
+
+def flash_attention_fwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, causal: bool = True):
+    """``(flash_attention_ref(q, k, v, causal), lse)``: the output and each
+    row's log-sum-exp of its scaled scores, float32 [B, H, Sq], as the
+    training forward keeps it for the backward."""
+    logits, _ = _scaled_logits(q, k, causal)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs, v.float()).to(q.dtype)
+    return out, torch.logsumexp(logits, dim=-1)
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         causal: bool = True) -> torch.Tensor:
     """Plain softmax attention on ``[B, H, S, d]``, scores materialized.
@@ -148,13 +194,32 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     admits it only for ``Sq == Sk``, where the reference's kernel and
     its oracle agree.
     """
-    d = q.shape[-1]
-    qf = q.float() * (1.0 / d ** 0.5)
-    logits = torch.einsum("bhqd,bhkd->bhqk", qf, k.float())
-    if causal:
-        s_q, s_k = q.shape[2], k.shape[2]
-        keep = torch.ones((s_q, s_k), dtype=torch.bool,
-                          device=q.device).tril()
-        logits = torch.where(keep, logits, -1e30)
-    probs = torch.softmax(logits, dim=-1)
-    return torch.einsum("bhqk,bhkd->bhqd", probs, v.float()).to(q.dtype)
+    return flash_attention_fwd_ref(q, k, v, causal)[0]
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor,
+                            v: torch.Tensor, o: torch.Tensor,
+                            lse: torch.Tensor, do: torch.Tensor,
+                            causal: bool = True):
+    """Gradients ``(dq, dk, dv)`` of ``o = flash_attention(q, k, v)`` for
+    the upstream ``do``, from the forward's ``o`` and ``lse``, written out
+    from the formulas the CUDA backward computes (in float32, each cast
+    to its input's dtype):
+
+        P = exp(q k^T / sqrt(d) - lse)     (0 where masked)
+        dv = P^T do,  dS = P * (do v^T - rowsum(do * o))
+        dq = dS k / sqrt(d),  dk = dS^T q / sqrt(d)
+    """
+    scale = 1.0 / q.shape[-1] ** 0.5
+    logits, keep = _scaled_logits(q, k, causal)
+    p = torch.exp(logits - lse[..., None])
+    if keep is not None:
+        p = torch.where(keep, p, 0.0)
+    dof, qf, kf = do.float(), q.float(), k.float()
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, v.float())
+    delta = (dof * o.float()).sum(-1)
+    ds = p * (dp - delta[..., None])
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kf) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)

@@ -1,5 +1,6 @@
 """Decoder-only LM (port of ``repro/models/transformer.py``): dense and
-MoE, GQA, RoPE, qk-norm, chunked-local attention, for serving.
+MoE, GQA, RoPE, qk-norm, chunked-local attention, for training and
+serving.
 
 One parameterised architecture covers the five LM configs
 (``repro_torch.configs``).  Differences from the reference:
@@ -8,7 +9,8 @@ One parameterised architecture covers the five LM configs
     stacked per super-block; ``convert.lm_params_from_arrays`` unstacks
     the reference's tree.  Eager PyTorch has no scan to keep small.
   * Prompt attention is one B6 launch a layer (``models/attention``);
-    ``forward`` and ``prefill`` both take it.
+    ``forward`` and ``prefill`` both take it, and ``loss_fn``'s backward
+    one launch of B6's backward kernel a layer.
   * ``prefill`` computes the reference's function (a cache filled by one
     ``decode_step`` a prompt token) in one batched pass through the
     layers, and takes the head only at the last position.  Its MoE
@@ -231,6 +233,23 @@ def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig):
     x, aux = _layers(params, x, cfg, cfg.moe)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return (x @ params["lm_head"]).float(), aux
+
+
+def loss_fn(params: dict, batch: dict, cfg: LMConfig,
+            z_weight: float = 1e-4):
+    """``batch["tokens"]`` [B, S+1] -> (scalar loss, metrics): the mean
+    next-token NLL (``lse - gold``) plus ``z_weight * mean(lse^2)`` plus
+    the MoE aux losses, over ``forward`` at the config's training
+    capacity (MoE drops included, as in the reference)."""
+    tokens = batch["tokens"]
+    inputs, targets = tokens[:, :-1], tokens[:, 1:]
+    logits, aux = forward(params, inputs, cfg)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, targets[..., None].long())[..., 0]
+    nll = torch.mean(lse - gold)
+    zloss = z_weight * torch.mean(lse ** 2)
+    loss = nll + zloss + aux["moe_lb"] + aux["moe_z"]
+    return loss, {"nll": nll, "zloss": zloss, **aux}
 
 
 # ---------------------------------------------------------------------------

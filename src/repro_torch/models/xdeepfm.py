@@ -1,17 +1,19 @@
-"""xDeepFM scoring (port of ``repro/models/xdeepfm.py``; arXiv:1803.05170).
+"""xDeepFM (port of ``repro/models/xdeepfm.py``; arXiv:1803.05170).
 
-Embedding bag + CIN + DNN + linear term, for serving: ``forward`` scores
-a batch of multi-hot rows, ``retrieval_scores`` one query against many
-candidates, ``loss_fn`` evaluates.  The CIN layers go through
+Embedding bag + CIN + DNN + linear term: ``forward`` scores a batch of
+multi-hot rows, ``retrieval_scores`` one query against many candidates,
+``loss_fn`` is the training loss.  The CIN layers go through
 ``kernels.ops.cin_layer`` (the CUDA kernel B5 on the card, its plain
-version on the CPU); the embedding bag, the DNN and the output products
-are plain PyTorch, as they were plain XLA in the reference.
+version on the CPU; its backward is B5 again for the input gradients and
+``cin_weight_grad`` for the weights); the embedding bag, the DNN and the
+output products are plain PyTorch, as they were plain XLA in the
+reference.
 
 Parameters keep the reference's tree (``table``, ``linear``, ``cin``,
 ``dnn``, ``bias``, ``cin_out``), so ``convert.xdeepfm_params_from_arrays``
-carries its weights across unchanged.  Training is not ported: the CIN
-kernel has no backward, and ``XDeepFM`` holds its parameters with
-``requires_grad=False``.
+carries its weights across unchanged.  ``init_params(...,
+requires_grad=True)`` gives a tree to train; ``XDeepFM`` holds its
+parameters frozen, for scoring.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.checkpoint.store import tree_leaves
 from repro_torch.core.graph import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models.gnn.layers import init_mlp, mlp
@@ -53,9 +56,10 @@ class XDeepFMConfig:
 
 
 def init_params(cfg: XDeepFMConfig, generator: torch.Generator,
-                device=None) -> dict:
+                device=None, requires_grad: bool = False) -> dict:
     """Random parameters drawn from ``generator`` (which lives on
-    ``device``), scaled as the reference scales them."""
+    ``device``), scaled as the reference scales them; every leaf
+    requires grad if ``requires_grad``."""
     device = resolve_device(device)
     d, m = cfg.embed_dim, cfg.n_fields
 
@@ -74,6 +78,9 @@ def init_params(cfg: XDeepFMConfig, generator: torch.Generator,
         params["cin"].append(normal(h, h_prev, m) * ((h_prev * m) ** -0.5))
         h_prev = h
     params["cin_out"] = normal(sum(cfg.cin_layers)) * 0.1
+    if requires_grad:
+        for t in tree_leaves(params):
+            t.requires_grad_(True)
     return params
 
 
@@ -115,8 +122,8 @@ def forward(params: dict, batch: dict) -> torch.Tensor:
 
 
 def loss_fn(params: dict, batch: dict):
-    """Mean stable BCE of ``forward`` against ``batch["labels"]`` and the
-    accuracy; evaluation only (nothing here has a backward)."""
+    """Mean stable BCE of ``forward`` against ``batch["labels"]``, and the
+    accuracy as its metric."""
     logits = forward(params, batch)
     y = batch["labels"].float()
     loss = torch.mean(torch.clamp(logits, min=0) - logits * y

@@ -12,7 +12,7 @@ import torch
 from repro.kernels import ops as rops
 from repro.kernels import ref as rref
 from repro.kernels.cin import cin_layer as pallas_cin_layer
-from repro_torch.kernels import _build, ops
+from repro_torch.kernels import _build, ops, ref
 from repro_torch.kernels.cin import cin_layer
 from test_torch_graph import _one_torch_thread  # noqa: F401
 
@@ -65,13 +65,22 @@ def test_cin_any_batch_vs_padded_reference(B):
 
 
 def test_cin_input_requiring_grad_raises():
+    """An input that requires grad raises no more: the call is
+    differentiable (its gradients equal the plain backward's), and under
+    no_grad it returns a result without a graph."""
     xk, x0, w = (torch.from_numpy(a) for a in _inputs(4, 3, 2, 5, 6))
-    with pytest.raises(RuntimeError, match="no backward"):
-        cin_layer(xk, x0, w.requires_grad_())
-    with pytest.raises(RuntimeError, match="no backward"):
-        ops.cin_layer(xk.requires_grad_(), x0, w.detach())
+    out = cin_layer(xk, x0, w.clone().requires_grad_())
+    assert out.requires_grad
+    out = ops.cin_layer(xk.clone().requires_grad_(), x0, w.detach())
+    assert out.requires_grad
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(0))
     with torch.no_grad():
-        assert cin_layer(xk, x0, w).shape == (4, 6, 5)
+        assert not cin_layer(xk, x0, w.requires_grad_()).requires_grad
+    xk_, x0_, w_ = (t.detach().clone().requires_grad_() for t in (xk, x0, w))
+    grads = torch.autograd.grad(cin_layer(xk_, x0_, w_), (xk_, x0_, w_), g)
+    want = ref.cin_layer_bwd_ref(xk, x0, w.detach(), g)
+    for got, exp in zip(grads, want):
+        np.testing.assert_allclose(got.numpy(), exp.numpy(), **TOL)
 
 
 def test_cin_checks_arguments():

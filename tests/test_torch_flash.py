@@ -86,8 +86,8 @@ def test_flash_checks_arguments():
         flash_attention(q, q[:, :1].contiguous(), q[:, :1].contiguous())
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), q, q)
-    with pytest.raises(RuntimeError, match="no backward"):
-        flash_attention(q.clone().requires_grad_(), q, q)
+    # an input that requires grad gives a differentiable result
+    assert flash_attention(q.clone().requires_grad_(), q, q).requires_grad
     with pytest.raises(ValueError, match="no kernel"):
         flash_attention(q.to("meta"), q.to("meta"), q.to("meta"))
     before = _build.launch_counts()

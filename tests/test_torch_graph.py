@@ -173,7 +173,8 @@ def test_port_import_leaves_jax_unloaded():
     code = ("import sys, repro_torch.sssp, repro_torch.convert, "
             "repro_torch.kernels.ops, repro_torch.models.transformer, "
             "repro_torch.runtime.serve_loop, repro_torch.launch.serve, "
-            "repro_torch.configs.qwen3_32b; "
+            "repro_torch.configs.qwen3_32b, repro_torch.optim, "
+            "repro_torch.runtime.train_loop, repro_torch.launch.train; "
             "print(sorted(m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'repro')))")
     out = subprocess.run(
@@ -212,3 +213,6 @@ def test_entry_points_need_cuda_unless_told_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         tfm.init_cache(cfg, 2, 16)
     BatchServer(params, cfg, batch=2, max_seq=16, device="cpu")
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--arch", "xdeepfm", "--steps", "1"])
