@@ -144,6 +144,7 @@ import collections
 import copy
 import functools
 import hashlib
+import itertools
 import json
 import statistics
 import subprocess
@@ -922,8 +923,16 @@ CIN_TRAIN_BATCHES = (512, 65536)
 BF16_GRAD_TOL = 1.6e-2
 BF16_GRAD_ATOL_STEPS = 4
 BF16_GRAD_ROW_FLOOR = 2.0 ** -8
-# the query tile of the bf16 dK/dV kernel (kQt in csrc/flash_attn_bwd.cu)
-BWD_QUERY_TILE = 32
+# the query tile of the backward kernel (kBq in csrc/flash_attn_bwd.cu)
+BWD_QUERY_TILE = 64
+# B6's backward on the paths [train]'s layer (bf16 by TMA at d = 128) does
+# not take, in both dtypes, causal and full: d 13 (the producer's own
+# scalar loads), 16 (its own 16-byte loads at a padded width of 64, as the
+# smoke LMs train), 64 (bf16 by TMA at a padded width of 64) and 96 (its
+# own loads at 128); B5's weight gradient at ragged K, H, M, D
+ATTN_RAGGED = dict(B=1, H=4, H_KV=4, S=256)
+ATTN_RAGGED_D = (13, 16, 64, 96)
+CIN_RAGGED = dict(B=100, H=7, M=5, D=3, K=65)
 # B5's gradients against float64: the reference's CIN tolerance (3e-4),
 # of the gradient's largest magnitude
 CIN_GRAD_TOL = 3e-4
@@ -972,13 +981,15 @@ def held_bf16_grad(torch, rec, name, got, want, what):
 
 
 def bf16_grad_faults(torch, q, k, v, o, lse, do, wants):
-    """The bf16 gradient check must reject two planted faults of the
-    dK/dV kernel, made from the plain version: its last query tile
-    dropped (dO zeroed on the last BWD_QUERY_TILE queries), and the causal
-    diagonal masked (each key's own query's term taken off dK and dV).
-    Logged beside the allowance of one bound scaled by the largest entry;
-    fails the run if the check accepts either fault."""
-    from repro_torch.kernels import ref
+    """The bf16 gradient check must reject three planted faults of the
+    backward, made from the plain version: dK and dV with the last query
+    tile dropped (dO zeroed on the last BWD_QUERY_TILE queries), dK and dV
+    with the causal diagonal masked (each key's own query's term taken
+    off), and dQ without the last key block's contribution (the last
+    BWD_KEY_BLOCK keys' terms taken off).  Logged beside the allowance of
+    one bound scaled by the largest entry; fails the run if the check
+    accepts any fault."""
+    from repro_torch.kernels import flash_attn, ref
     S, scale = q.shape[2], q.shape[-1] ** -0.5
     do_cut = do.clone()
     do_cut[:, :, S - BWD_QUERY_TILE:] = 0
@@ -990,12 +1001,28 @@ def bf16_grad_faults(torch, q, k, v, o, lse, do, wants):
     ds = p * ((dof * vf).sum(-1) - (dof * of).sum(-1))[..., None]
     dk_diag = (wants[1].float() - ds * qf * scale).to(k.dtype)
     dv_diag = (wants[2].float() - p * dof).to(v.dtype)
-    del qf, kf, vf, of, dof, p, ds
-    for fault, dk, dv in (
-            (f"last {BWD_QUERY_TILE}-query tile dropped", dk_cut, dv_cut),
-            ("causal diagonal masked", dk_diag, dv_diag)):
+    # the last key block's terms of dQ: dS[:, :, :, last] k[last] / sqrt(d)
+    kb = flash_attn.BWD_KEY_BLOCK
+    kl, vl = kf[:, :, S - kb:], vf[:, :, S - kb:]
+    pl = torch.exp(torch.einsum("bhqd,bhkd->bhqk", qf, kl) * scale
+                   - lse[..., None])
+    keys = torch.arange(S - kb, S, device=q.device)
+    rows = torch.arange(S, device=q.device)
+    pl = torch.where(keys[None, :] <= rows[:, None], pl, 0.0)
+    dsl = pl * (torch.einsum("bhqd,bhkd->bhqk", dof, vl)
+                - (dof * of).sum(-1)[..., None])
+    dq_cut = (wants[0].float() - torch.einsum("bhqk,bhkd->bhqd", dsl, kl)
+              * scale).to(q.dtype)
+    del qf, kf, vf, of, dof, p, ds, kl, vl, pl, dsl
+    named = dict(dq=wants[0], dk=wants[1], dv=wants[2])
+    for fault, grads in (
+            (f"last {BWD_QUERY_TILE}-query tile dropped",
+             dict(dk=dk_cut, dv=dv_cut)),
+            ("causal diagonal masked", dict(dk=dk_diag, dv=dv_diag)),
+            (f"dQ without the last {kb}-key block", dict(dq=dq_cut))):
         caught = False
-        for gname, got, want in (("dk", dk, wants[1]), ("dv", dv, wants[2])):
+        for gname, got in grads.items():
+            want = named[gname]
             ok, worst, _ = bf16_grad_check(torch, got, want)
             err = max_abs_err(torch, got.float(), want.float())
             loose = BF16_GRAD_TOL * float(want.float().abs().max())
@@ -1019,11 +1046,32 @@ def bwd_kernel_phase(torch, rec):
 def attn_bwd_check(torch, rec):
     """B6's forward with the log-sum-exp and its backward against their
     plain versions at the [train] qwen3-32b layer (bf16, with the planted
-    faults of ``bf16_grad_faults``) and at a smaller f32 shape, timed
-    against SDPA's backward (autograd of
-    ``scaled_dot_product_attention``)."""
+    faults of ``bf16_grad_faults``) and at a smaller f32 shape, each
+    backward run twice on the same inputs (a dQ accumulator left unzeroed
+    shows in the second), timed against SDPA's backward (autograd of
+    ``scaled_dot_product_attention``); then the head widths of
+    ``ATTN_RAGGED_D`` (the kernel's other paths), causal and full."""
     from repro_torch.kernels import flash_attn, ref
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    for dtype, d, causal in itertools.product(
+            (torch.float32, torch.bfloat16), ATTN_RAGGED_D, (True, False)):
+        name = str(dtype)[6:]
+        a = dict(ATTN_RAGGED, d=d)
+        q, k, v = attn_inputs(torch, dtype, seed=5, a=a)
+        do = torch.randn(q.shape, generator=torch.Generator(
+            device=DEVICE).manual_seed(6), device=DEVICE).to(dtype)
+        what = (f"{name} B={a['B']} H={a['H']} S={a['S']} d={d} "
+                f"{'causal' if causal else 'full'}")
+        o, lse = flash_attn._forward(q, k, v, causal, with_lse=True)
+        grads = flash_attn.flash_attention_bwd(q, k, v, o, lse, do, causal)
+        wants = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal)
+        for gname, got, want in zip(("dq", "dk", "dv"), grads, wants):
+            if dtype == torch.bfloat16:
+                held_bf16_grad(torch, rec, "flash_attention_bwd", got, want,
+                               f"{what} {gname}")
+            else:
+                held_rec(torch, rec, "flash_attention_bwd", got, want,
+                         what=f"{what} {gname}", **ATTN_TOL[name])
     for dtype, a in ((torch.float32, TRAIN_ATTN_F32),
                      (torch.bfloat16, TRAIN_ATTN_SHAPE)):
         name = str(dtype)[6:]
@@ -1039,17 +1087,19 @@ def attn_bwd_check(torch, rec):
         err = max(err, held_rec(torch, rec, "flash_attention_lse", lse,
                                 want_lse, what=what + " lse",
                                 **ATTN_TOL["float32"]))
-        grads = flash_attn.flash_attention_bwd(q, k, v, o, lse, do, True)
         wants = ref.flash_attention_bwd_ref(q, k, v, o, lse, do, True)
         b_err = 0.0
-        for gname, got, want in zip(("dq", "dk", "dv"), grads, wants):
-            if dtype == torch.bfloat16:
-                e = held_bf16_grad(torch, rec, "flash_attention_bwd", got,
-                                   want, f"{what} {gname}")
-            else:
-                e = held_rec(torch, rec, "flash_attention_bwd", got, want,
-                             what=f"{what} {gname}", **ATTN_TOL[name])
-            b_err = max(b_err, e)
+        for run in ("run 1", "run 2"):
+            grads = flash_attn.flash_attention_bwd(q, k, v, o, lse, do, True)
+            for gname, got, want in zip(("dq", "dk", "dv"), grads, wants):
+                if dtype == torch.bfloat16:
+                    e = held_bf16_grad(torch, rec, "flash_attention_bwd",
+                                       got, want, f"{what} {gname}, {run}")
+                else:
+                    e = held_rec(torch, rec, "flash_attention_bwd", got,
+                                 want, what=f"{what} {gname}, {run}",
+                                 **ATTN_TOL[name])
+                b_err = max(b_err, e)
         if dtype == torch.bfloat16:
             bf16_grad_faults(torch, q, k, v, o, lse, do, wants)
         del grads, wants, want_o, want_lse
@@ -1081,15 +1131,59 @@ def attn_bwd_check(torch, rec):
         torch.cuda.empty_cache()
 
 
+def wgrad_exact(ref, up, xk, x0):
+    """``cin_weight_grad`` in float64, in parts of at most 4,096 samples."""
+    step = min(up.shape[0], 4096)
+    return sum(ref.cin_weight_grad_ref(
+        up[i:i + step].double(), xk[i:i + step].double(),
+        x0[i:i + step].double()) for i in range(0, up.shape[0], step))
+
+
+def wgrad_fault(torch, up, xk, x0, exact, what):
+    """``held_scaled`` at CIN_GRAD_TOL must reject a planted fault made from
+    the plain version: dW without the last stage of WG_COLS columns b * D
+    + d (the kernel's chunk of the reduction).  Logged; fails the run if
+    the check accepts it."""
+    from repro_torch.kernels import cin, ref
+    B, K, D = up.shape
+    c_lo = (B * D - 1) // cin.WG_COLS * cin.WG_COLS   # the last stage
+    b_lo = c_lo // D
+    cols = torch.arange(b_lo * D, B * D, device=up.device).view(-1, 1, D)
+    last = up[b_lo:] * (cols >= c_lo)
+    dw_cut = exact - ref.cin_weight_grad_ref(last.double(),
+                                             xk[b_lo:].double(),
+                                             x0[b_lo:].double())
+    err = float((dw_cut - exact).abs().max())
+    allow = CIN_GRAD_TOL * float(exact.abs().max())
+    log(f"  planted fault (dW without the last {cin.WG_COLS}-column stage, "
+        f"{B * D - c_lo} columns) {what}: max_abs_err {err:.3e} against "
+        f"{allow:.3e} ({CIN_GRAD_TOL:g} x max): "
+        f"{'accepted' if err <= allow else 'rejected'}")
+    check(err > allow, f"the scaled weight-gradient check accepts a planted "
+                       f"fault ({what})")
+
+
 def cin_bwd_check(torch, rec):
     """``cin_weight_grad`` and the whole B5 backward (input gradients
     through the forward kernel with permuted weights, dx_0 split over 191
     fields) at FULL widths, B 512 and 65,536, against float64, timed
-    against the einsum forms."""
+    against the einsum forms; ``cin_weight_grad`` run twice on the same
+    inputs at each shape and at the ragged ``CIN_RAGGED``, and its planted
+    fault (``wgrad_fault``) rejected at each FULL shape."""
     from repro_torch.kernels import cin, ref
+    g = torch.Generator(device=DEVICE).manual_seed(6)
+    r = CIN_RAGGED
+    up, xk, x0 = (torch.randn(shape, generator=g, device=DEVICE) for shape in
+                  ((r["B"], r["K"], r["D"]), (r["B"], r["H"], r["D"]),
+                   (r["B"], r["M"], r["D"])))
+    exact = wgrad_exact(ref, up, xk, x0)
+    for run in ("run 1", "run 2"):
+        held_scaled(torch, rec, "cin_weight_grad",
+                    cin.cin_weight_grad(up, xk, x0), exact, CIN_GRAD_TOL,
+                    "B={B} H={H} M={M} D={D} K={K} vs f64, ".format(**r)
+                    + run)
     c = CIN_SHAPE
     M, D, K = c["M"], c["D"], c["K"]
-    g = torch.Generator(device=DEVICE).manual_seed(6)
     for B in CIN_TRAIN_BATCHES:
         for H in (M, 200):
             def draw(*shape):
@@ -1098,12 +1192,12 @@ def cin_bwd_check(torch, rec):
                              draw(B, K, D))
             what = f"B={B} H={H} M={M} D={D} K={K}"
             step = min(B, 4096)
-            exact = sum(ref.cin_weight_grad_ref(
-                up[i:i + step].double(), xk[i:i + step].double(),
-                x0[i:i + step].double()) for i in range(0, B, step))
-            dw = cin.cin_weight_grad(up, xk, x0)
-            err = held_scaled(torch, rec, "cin_weight_grad", dw, exact,
-                              CIN_GRAD_TOL, what + " vs f64")
+            exact = wgrad_exact(ref, up, xk, x0)
+            for run in ("run 1", "run 2"):
+                dw = cin.cin_weight_grad(up, xk, x0)
+                err = held_scaled(torch, rec, "cin_weight_grad", dw, exact,
+                                  CIN_GRAD_TOL, f"{what} vs f64, {run}")
+            wgrad_fault(torch, up, xk, x0, exact, what)
             del exact
             # the whole backward through the autograd path: dx_k and dx_0
             # (B5 with permuted weights, dx_0 in ceil(H / 191) calls) on

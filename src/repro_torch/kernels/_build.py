@@ -43,16 +43,16 @@ SIGNATURES = {
                         (_P, _P, _P, _P, _P, _P, _I, _L, _I, _I, _P)),
     "cin_layer": ("cin", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                           _I, _P)),
-    "cin_weight_grad": ("cin", (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                _I, _P)),
+    "cin_weight_grad": ("cin", (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                _I, _I, _P)),
     "flash_attention": ("flash_attn",
                         (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P)),
     "flash_attention_lse": ("flash_attn",
                             (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                              _P)),
     "flash_attention_bwd": ("flash_attn_bwd",
-                            (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                             _I, _I, _I, _I, _P)),
+                            (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                             _I, _I, _I, _I, _I, _P)),
 }
 SOURCES = tuple(sorted({src for src, _ in SIGNATURES.values()}))
 
@@ -140,21 +140,67 @@ def build_all(verbose: bool = False) -> float:
     return time.perf_counter() - t0
 
 
+def _typed(lib: ctypes.CDLL, fn: str):
+    f = getattr(lib, fn)
+    f.argtypes = SIGNATURES[fn][1]
+    f.restype = ctypes.c_int
+    return f
+
+
 def function(fn: str):
     """The ctypes function ``fn`` of its library, building on first use
     (bound once, so a wrapper's call costs one dict lookup here)."""
     f = _fns.get(fn)
     if f is not None:
         return f
-    src, argtypes = SIGNATURES[fn]
+    src = SIGNATURES[fn][0]
     if src not in _libs:
         build_all()
         _libs[src] = ctypes.CDLL(str(_lib_path(src)))
-    f = getattr(_libs[src], fn)
-    f.argtypes = argtypes
-    f.restype = ctypes.c_int
-    _fns[fn] = f
+    f = _fns[fn] = _typed(_libs[src], fn)
     return f
+
+
+def edit_source(fn: str, edits) -> str:
+    """The text of ``fn``'s source with ``edits`` applied: each ``(old,
+    new)`` pair replaces a string that must occur exactly once."""
+    src = SIGNATURES[fn][0]
+    text = (CSRC / f"{src}.cu").read_text()
+    for old, new in edits:
+        if text.count(old) != 1:
+            raise ValueError(f"{src}.cu: an edit's anchor occurs "
+                             f"{text.count(old)} times, not once: {old!r}")
+        text = text.replace(old, new)
+    return text
+
+
+def build_variant(fn: str, edits, out_dir) -> ctypes._CFuncPtr:
+    """The ctypes function ``fn`` of a copy of ``csrc/`` in ``out_dir``
+    with ``edits`` applied (``edit_source``), built with ``NVCC_FLAGS``:
+    a mutant or an ablation, never cached.  The wrappers go on launching
+    the built library unless ``use`` is given the result."""
+    out = Path(out_dir)
+    shutil.rmtree(out, ignore_errors=True)
+    shutil.copytree(CSRC, out)
+    src = SIGNATURES[fn][0]
+    path = out / f"{src}.cu"
+    path.write_text(edit_source(fn, edits))
+    lib = out / f"lib{src}.so"
+    run = subprocess.run([nvcc(), *NVCC_FLAGS, "-o", str(lib), str(path)],
+                         capture_output=True, text=True)
+    if run.returncode:
+        raise RuntimeError(f"nvcc failed for {path}:\n{run.stdout}"
+                           f"{run.stderr}")
+    return _typed(ctypes.CDLL(str(lib)), fn)
+
+
+def use(fn: str, f=None) -> None:
+    """Make the wrappers launch ``f`` (from ``build_variant``) for ``fn``;
+    ``None`` goes back to the built library."""
+    if f is None:
+        _fns.pop(fn, None)
+    else:
+        _fns[fn] = f
 
 
 def raw_stream(device) -> int:

@@ -49,10 +49,17 @@ SMS = 132           # streaming multiprocessors of an H100 SXM
 MAX_FIELDS = 191
 
 
-# cin_weight_grad's tiles (csrc/cin.cu: kGJt, kGBc): values of j and
-# samples a chunk of the reduction; rows k a block as the forward's
-WG_ROWS = 128
-WG_SAMPLES = 8
+# cin_weight_grad's tiles (csrc/cin.cu: kGJt, kGKt, kGCols, kGFlush; a
+# test holds them equal): values of j and rows k a block, columns
+# b * D + d a stage of the reduction, and k-steps of 8 columns between
+# two flushes of the float32 accumulators into their Kahan pairs
+WG_ROWS = 64
+WG_KROWS = 208
+WG_COLS = 32
+WG_FLUSH = 32
+# floats of g split into TF32 hi and lo a stage and k tile (csrc/cin.cu:
+# 2 * kGG / 4): the weight gradient's scratch
+WG_PREP = 2 * WG_KROWS * WG_COLS
 
 
 class Plan(NamedTuple):
@@ -92,13 +99,21 @@ def plan(B: int, H: int, M: int, D: int, K: int, sms: int = SMS) -> Plan:
 
 def wgrad_plan(B: int, H: int, M: int, D: int, K: int,
                sms: int = SMS) -> tuple[int, int, tuple | None]:
-    """How ``cin_weight_grad`` splits its reduction over the samples
-    (chunks of ``WG_SAMPLES``) into S parts (``_split``): ``(S, chunks a
+    """How ``cin_weight_grad`` splits its reduction over the B * D columns
+    (stages of ``WG_COLS``) into S parts (``_split``): ``(S, stages a
     part, the float32 partial sums' shape [S, K, H * M] or None)``."""
-    n_chunks = math.ceil(B / WG_SAMPLES)
-    tiles = math.ceil(H * M / WG_ROWS) * math.ceil(K / ROWS)
+    n_chunks = math.ceil(B * D / WG_COLS)
+    tiles = math.ceil(H * M / WG_ROWS) * math.ceil(K / WG_KROWS)
     splits, cps = _split(max(1, n_chunks), tiles, sms)
     return splits, cps, (splits, K, H * M) if splits > 1 else None
+
+
+def wgrad_prep_floats(B: int, D: int, K: int) -> int:
+    """Floats of ``cin_weight_grad``'s scratch for g split into TF32 hi
+    and lo: ``WG_PREP`` a stage of ``WG_COLS`` columns and k tile of
+    ``WG_KROWS`` rows (1.09 GB at B = 65,536, D = 10, K = 200)."""
+    return (math.ceil(K / WG_KROWS) * math.ceil(B * D / WG_COLS)
+            * WG_PREP)
 
 
 def backward_launches(H: int, M: int) -> dict:
@@ -210,7 +225,12 @@ def cin_weight_grad(g: torch.Tensor, x_k: torch.Tensor,
                     x_0: torch.Tensor) -> torch.Tensor:
     """float32 g [B, K, D], x_k [B, H, D], x_0 [B, M, D] -> dw [K, H, M],
     ``dw[k, h, m] = sum_{b, d} g[b, k, d] x_k[b, h, d] x_0[b, m, d]``: the
-    CIN layer's weight gradient, one counted launch on the card."""
+    CIN layer's weight gradient, one counted launch on the card.  Blocks
+    of ``WG_ROWS`` values of j by ``WG_KROWS`` rows k walk the columns in
+    stages of ``WG_COLS``; ``wgrad_plan`` splits the stages into parts
+    when the blocks alone leave SMs idle.  The wrapper allocates the
+    float32 scratch: g split into TF32 hi and lo in the stages' order
+    (``wgrad_prep_floats``) and the parts' partial sums."""
     for name, t in (("g", g), ("x_k", x_k), ("x_0", x_0)):
         if t.dtype != torch.float32 or t.dim() != 3 or \
                 not t.is_contiguous() or t.device != g.device:
@@ -231,14 +251,16 @@ def cin_weight_grad(g: torch.Tensor, x_k: torch.Tensor,
         B, H, M, D, K, torch.cuda.get_device_properties(
             dev).multi_processor_count)
     dw = torch.empty((K, H, M), dtype=torch.float32, device=dev)
+    gprep = torch.empty(max(1, wgrad_prep_floats(B, D, K)),
+                        dtype=torch.float32, device=dev)
     part = (torch.empty(part_shape, dtype=torch.float32, device=dev)
             if part_shape else None)
     fn = _build.function("cin_weight_grad")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = fn(g.data_ptr(), x_k.data_ptr(), x_0.data_ptr(), dw.data_ptr(),
-                None if part is None else part.data_ptr(), B, H, M, D, K,
-                splits, cps, stream)
+                gprep.data_ptr(), None if part is None else part.data_ptr(),
+                B, H, M, D, K, splits, cps, stream)
     _build.check(rc, "cin_weight_grad")
     _build.count_launch("cin_weight_grad")
     return dw

@@ -59,24 +59,52 @@
 // The layer's backward (kernels/cin.py) takes its input gradients from
 // this kernel with permuted weights, and its weight gradient from
 // cin_weight_grad below, which replaces no TPU kernel (the reference's
-// CIN has no backward):
+// CIN has no backward; training xDeepFM on the card needs one):
 //
 //     dW[k, h, m] = sum_{b, d} g[b, k, d] * x_k[b, h, d] * x_0[b, m, d]
 //
 // the GEMM dW^T[j, k] = sum_c Z[c, j] G[c, k] over the B * D columns c =
-// b * D + d (655,360 at B = 65,536), with Z = x_k * x_0 formed in
-// registers as in the forward and G[c, k] = g[b, k, d].  A block owns
-// 128 values of j (8 warps of 16) by 40 rows k and walks chunks of 8
-// samples (8 * D columns, D k-steps of mma.sync.m16n8k8 3xTF32, fresh
-// fragments added into Kahan pairs as in the forward); the chunk's x_0,
-// its few x_k rows and its 40 rows of g come in by cp.async,
-// double-buffered.  The chunks split into S parts when the tiles alone
-// would not fill the card; the parts' partial sums are added in a fixed
-// order in f64 by a second kernel.  Bound: the same operations as the
-// forward; bytes 4*(H + M + K)*D a sample plus 4*K*H*M.
+// b * D + d (655,360 at B = 65,536), with Z[c, j] = x_k[b, h, d] *
+// x_0[b, m, d] never kept in device memory and G[c, k] = g[b, k, d].
+// Bound on an H100: operations, 2*K*H*M*D*B FLOPs (as the forward) at
+// 67 TFLOP/s f32, or three TF32 products each at 495 TFLOP/s on the
+// tensor cores; bytes 4*(H + M + K)*D a sample plus 4*K*H*M.
+//
+// Design (warp-specialised, wgmma tf32):
+// - A block owns kGJt = 64 values of j by kGKt = 208 rows k (K = 200 in
+//   one tile; more K in more tiles).  Its two consumer warpgroups share
+//   one Z tile and split the rows k, 104 each: dW^T's [64, 104] tile is
+//   wgmma.m64n104k8 with Z^T as A and G^T as B, both from shared memory,
+//   K-major (the column index c contiguous), 128-byte swizzled.
+// - G is the same for every block of a k tile, so prep_g_kernel splits
+//   g once into TF32 hi and lo, in the byte order of the stage tiles, into
+//   scratch from the caller; a stage's G^T (53,248 bytes) then lands in
+//   shared memory by one bulk copy on the stage's mbarrier.
+// - Two producer warpgroups fill a 2-stage ring, kGCols = 32 columns a
+//   stage: each lane owns one column, forms its Z values x_k * x_0 (8 of
+//   the 64 rows j), splits each once into TF32 hi and lo and stores both
+//   into the swizzled tile.  So every Z value is formed and split once a
+//   call for its block, every g value once a call, and the consumers only
+//   multiply, keeping one stage's products in flight while they issue the
+//   next.
+// - Precision: 3xTF32 as the forward: lo.hi + hi.lo + hi.hi into a f32
+//   accumulator, which is added into a Kahan pair every kGFlush stages
+//   (F = 32 k-steps).  The pair's compensation is the accumulator's next
+//   start, so a flush costs 3 adds; its sum lives in shared memory, which
+//   keeps a consumer thread's registers (the 52 accumulators) inside the
+//   128 that 512 threads allow.  The CPU tests emulate this sum at
+//   B = 65,536 (tests/test_torch_split_precision.py).
+// - Occupancy: 122 j tiles at H = 200, M = 39 fill 122 of 132 SMs; the
+//   wrapper splits the stages into S parts when the tiles alone would
+//   not fill the card, each part writes its f32 partial [S, K, H * M],
+//   and sum_splits_kernel adds them in a fixed order in f64.  Blocks of
+//   the same part (the same samples) are adjacent in the grid, so they run
+//   together and find g's stages and x_k and x_0 in L2.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -314,154 +342,196 @@ __global__ void sum_parts_kernel(const float* __restrict__ part,
   out[((c / D) * K + k) * D + c % D] = (float)acc;
 }
 
-constexpr int kGWarps = 8;
-constexpr int kGThreads = 32 * kGWarps;
-constexpr int kGJt = 16 * kGWarps;         // 128 values of j a block
-constexpr int kGBc = 8;                    // samples a chunk: 8 * D columns
+constexpr int kGJt = 64;                   // values of j a block
+constexpr int kGN = 104;                   // rows k a consumer warpgroup
+constexpr int kGKt = 2 * kGN;              // rows k a block
+constexpr int kGCols = 32;                 // columns c = b * D + d a stage
+constexpr int kGStages = 2;                // stages in the ring
+constexpr int kGFlush = 8;                 // stages a Kahan flush
+constexpr int kGProd = 256;                // producer threads (2 groups)
+constexpr int kGThreads = kGProd + 256;    // and 2 consumer warpgroups
+constexpr int kGZ = kGJt * 128;            // bytes of a Z^T part [64][32]
+constexpr int kGG = kGKt * 128;            // bytes of a G^T part [208][32]
+constexpr int kGStage = 2 * kGZ + 2 * kGG; // hi and lo of both
+constexpr int kGTot = 256 * (kGN / 2) * 4;  // the consumers' Kahan sums
+constexpr int kGSmem = kGStages * kGStage + kGTot + 2 * kGStages * 8 + 1024;
+
+// g split once into TF32 hi and lo in the order of the G^T stage tiles:
+// for k tile kt and stage st, the 2 * kGG bytes of gp from ((kt * n_stages
+// + st) * 2 * kGG) hold the hi and then the lo part of G^T[k0 + r][st *
+// kGCols + c] at sw128(r, c / 4) + (c % 4) * 4 (0 past K or B * D), the
+// bytes a stage's bulk copy lands in shared memory
+__global__ void prep_g_kernel(const float* __restrict__ gr,
+                              float* __restrict__ gp, int K, int D,
+                              long long N, long long n_stages, int n_ktiles) {
+  const long long n = (long long)n_ktiles * n_stages * kGKt * kGCols;
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
+       i < n; i += (long long)gridDim.x * blockDim.x) {
+    const int c = (int)(i % kGCols);
+    const int r = (int)((i / kGCols) % kGKt);
+    const long long t = i / ((long long)kGCols * kGKt);   // kt * stages + st
+    const long long st = t % n_stages;
+    const int k = (int)(t / n_stages) * kGKt + r;
+    const long long col = st * kGCols + c;
+    float x = 0.f;
+    if (k < K && col < N) {
+      const long long b = col / D;
+      x = gr[(b * K + k) * D + (col - b * D)];
+    }
+    uint32_t hi, lo;
+    split(x, hi, lo);
+    float* tile = gp + t * (2 * kGG / 4);
+    const uint32_t off = (hopper::sw128(r, c >> 2) + (c & 3) * 4) / 4;
+    tile[off] = __uint_as_float(hi);
+    tile[kGG / 4 + off] = __uint_as_float(lo);
+  }
+}
 
 __global__ void __launch_bounds__(kGThreads, 1)
-cin_wgrad_kernel(const float* __restrict__ gr, const float* __restrict__ xk,
+cin_wgrad_kernel(const float* __restrict__ gp, const float* __restrict__ xk,
                  const float* __restrict__ x0, float* __restrict__ dw,
                  float* __restrict__ part, int B, int H, int M, int D,
-                 int K, int n_jtiles, int n_ktiles, int cps, int n_chunks,
-                 int nh) {
-  extern __shared__ __align__(16) float smem[];
-  const int st_x0 = kGBc * M * D;          // a stage: x_0 of 8 samples,
-  const int st_xk = kGBc * nh * D;         // their x_k rows h0 .. + nh,
-  const int st_g = kGBc * kKt * D;         // and their g rows k0 .. + 40
-  const int stage_f = st_x0 + st_xk + st_g;
-  int* ctab = reinterpret_cast<int*>(smem + 2 * stage_f);   // [8 D][3]
+                 int K, int n_jtiles, int n_ktiles, int cps, int n_stages) {
+  using namespace hopper;
+  extern __shared__ uint8_t gsm_raw[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(gsm_raw) + 1023) & ~uintptr_t(1023));
+  float* tot_s = reinterpret_cast<float*>(sm + kGStages * kGStage);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + kGStages * kGStage +
+                                               kGTot);
+  uint64_t* empty = full + kGStages;
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
   int bid = blockIdx.x;
-  const int jt = bid % n_jtiles;
-  bid /= n_jtiles;
+  const int jt = bid % n_jtiles;           // j fastest: a part's blocks
+  bid /= n_jtiles;                         // run together
   const int kt = bid % n_ktiles;
   const int s = bid / n_ktiles;            // part of the reduction
   const int HM = H * M;
   const int j0 = jt * kGJt;
-  const int k0 = kt * kKt;
-  const int h0 = j0 / M;
-  const int ch0 = s * cps;
-  const int n_ch = min(cps, n_chunks - ch0);
-  const int ncol = kGBc * D;
+  const int k0 = kt * kGKt;
+  const int st0 = s * cps;
+  const int nst = min(cps, n_stages - st0);
+  const long long N = (long long)B * D;
 
-  // the thread's A rows j and j + 8: offsets of their x_0 and x_k values
-  // in a column's sample, and whether they exist
-  int o0[2], ok[2];
-  float live[2];
-#pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    const int j = j0 + warp * 16 + g + 8 * q;
-    const int h = j < HM ? j / M : h0;
-    o0[q] = j < HM ? (j - h * M) * D : 0;
-    ok[q] = (h - h0) * D;
-    live[q] = j < HM ? 1.f : 0.f;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kGStages; ++i) {
+      mbar_init(&full[i], kGProd);
+      mbar_init(&empty[i], 256);
+    }
+    mbar_init_fence();
   }
-  // column c = b * D + d of a chunk: offsets of its sample in the stage
-  for (int c = tid; c < ncol; c += kGThreads) {
-    const int bl = c / D;
-    const int d = c % D;
-    ctab[3 * c] = bl * M * D + d;
-    ctab[3 * c + 1] = bl * nh * D + d;
-    ctab[3 * c + 2] = bl * kKt * D + d;
-  }
-  auto stage = [&](int ch, int st) {
-    const long long b0 = (long long)ch * kGBc;
-    const int nb = (int)min((long long)kGBc, B - b0);
-    float* xs0 = smem + st * stage_f;
-    float* xsk = xs0 + st_x0;
-    float* gs = xsk + st_xk;
-    for (int i = tid; i < st_x0; i += kGThreads) {
-      const bool in = i < nb * M * D;
-      cp_async4(xs0 + i, x0 + (in ? b0 * M * D + i : 0), in);
-    }
-    for (int i = tid; i < st_xk; i += kGThreads) {
-      const int bl = i / (nh * D);
-      const int r = i % (nh * D);
-      const bool in = bl < nb && h0 + r / D < H;
-      cp_async4(xsk + i, xk + (in ? ((b0 + bl) * H + h0) * D + r : 0), in);
-    }
-    for (int i = tid; i < st_g; i += kGThreads) {
-      const int bl = i / (kKt * D);
-      const int r = i % (kKt * D);
-      const bool in = bl < nb && k0 + r / D < K;
-      cp_async4(gs + i, gr + (in ? ((b0 + bl) * K + k0) * D + r : 0), in);
-    }
-    cp_commit();
-  };
-
-  float tot[kNi][4], ncm[kNi][4];
-#pragma unroll
-  for (int b = 0; b < kNi; ++b)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) tot[b][e] = ncm[b][e] = 0.f;
-
-  if (n_ch > 0) stage(ch0, 0);
-  cp_wait_all();
   __syncthreads();
-  for (int ch = 0; ch < n_ch; ++ch) {
-    const int st = ch & 1;
-    if (ch + 1 < n_ch) stage(ch0 + ch + 1, st ^ 1);
-    const float* xs0 = smem + st * stage_f;
-    const float* xsk = xs0 + st_x0;
-    const float* gs = xsk + st_xk;
-    for (int kk = 0; kk < D; ++kk) {       // 8 columns a k-step
-      // A = Z^T: a0 (row j, column t), a1 (j + 8, t), a2 (j, t + 4),
-      // a3 (j + 8, t + 4); B = G: b0 (column t, row k0 + 8 b + g),
-      // b1 (column t + 4, the same k)
-      uint32_t ah[4], al[4];
-      int cg[2];
+
+  if (threadIdx.x < kGProd) {
+    // ---- producers: lane cl owns column cl of every stage, warp pw the
+    // rows pw + 8 i of Z^T; thread 0 brings the stage's G^T (hi and lo,
+    // split by prep_g_kernel) with one bulk copy
+    constexpr int PW = kGProd / 32;
+    constexpr int ZR = kGJt / PW;          // rows of Z^T a thread
+    const int cl = threadIdx.x % 32;
+    const int pw = threadIdx.x / 32;
+    int hD[ZR], mD[ZR];                    // x_k, x_0 row offsets of j
 #pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int c = 8 * kk + t + 4 * q;
-        const int c0 = ctab[3 * c];
-        const int ck = ctab[3 * c + 1];
-        cg[q] = ctab[3 * c + 2];
-#pragma unroll
-        for (int r = 0; r < 2; ++r)
-          split(live[r] * xsk[ck + ok[r]] * xs0[c0 + o0[r]], ah[2 * q + r],
-                al[2 * q + r]);
-      }
-      uint32_t bh[kNi][2], bl[kNi][2];
-#pragma unroll
-      for (int b = 0; b < kNi; ++b)
-#pragma unroll
-        for (int q = 0; q < 2; ++q)
-          split(gs[cg[q] + (b * 8 + g) * D], bh[b][q], bl[b][q]);
-      float f[kNi][4];
-#pragma unroll
-      for (int b = 0; b < kNi; ++b)
-        mma(f[b], al, bh[b][0], bh[b][1], ncm[b]);
-#pragma unroll
-      for (int b = 0; b < kNi; ++b) mma(f[b], ah, bl[b][0], bl[b][1], f[b]);
-#pragma unroll
-      for (int b = 0; b < kNi; ++b) mma(f[b], ah, bh[b][0], bh[b][1], f[b]);
-#pragma unroll
-      for (int b = 0; b < kNi; ++b)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {      // Kahan, f = term - compensation
-          const float u = tot[b][e] + f[b][e];
-          ncm[b][e] = f[b][e] - (u - tot[b][e]);
-          tot[b][e] = u;
-        }
+    for (int i = 0; i < ZR; ++i) {
+      const int j = j0 + pw + PW * i;
+      hD[i] = j < HM ? (j / M) * D : -1;
+      mD[i] = j < HM ? (j % M) * D : 0;
     }
-    cp_wait_all();
-    __syncthreads();
+    const float* gsrc = gp + ((long long)kt * n_stages + st0) * (2 * kGG / 4);
+    for (int n = 0; n < nst; ++n) {
+      const int st = n % kGStages;
+      const long long c = (long long)(st0 + n) * kGCols + cl;
+      const float *cxk = xk, *cx0 = x0;
+      bool live = c < N;
+      if (live) {
+        const long long b = c / D;
+        const int dd = (int)(c - b * D);
+        cxk = xk + b * H * D + dd;
+        cx0 = x0 + b * M * D + dd;
+      }
+      float z[ZR];
+#pragma unroll
+      for (int i = 0; i < ZR; ++i)
+        z[i] = live && hD[i] >= 0
+                   ? __ldg(cxk + hD[i]) * __ldg(cx0 + mD[i]) : 0.f;
+      if (n >= kGStages) mbar_wait(&empty[st], ((n / kGStages) - 1) & 1);
+      uint8_t* zs = sm + st * kGStage;     // Z^T hi, lo; G^T hi, lo
+      if (threadIdx.x == 0) {
+        mbar_expect_tx(&full[st], 2 * kGG);
+        bulk_load(zs + 2 * kGZ, gsrc + (long long)n * (2 * kGG / 4), 2 * kGG,
+                  &full[st]);
+      }
+#pragma unroll
+      for (int i = 0; i < ZR; ++i) {
+        uint32_t hi, lo;
+        split(z[i], hi, lo);
+        const uint32_t off = sw128(pw + PW * i, cl >> 2) + (cl & 3) * 4;
+        *reinterpret_cast<uint32_t*>(zs + off) = hi;
+        *reinterpret_cast<uint32_t*>(zs + kGZ + off) = lo;
+      }
+      fence_async_shared();
+      mbar_arrive(&full[st]);
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup cw takes rows k0 + 104 cw .. + 103; one
+  // group of products stays in flight while the next stage is issued
+  const int cw = (threadIdx.x - kGProd) / 128;
+  const int tw = threadIdx.x % 128;
+  const int ww = tw / 32;
+  const int lane = tw % 32;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  // the Kahan pairs: sums in shared memory ([kGN / 2][256], the thread's
+  // column), compensations in acc, which the next flush window starts from
+  float* tot = tot_s + (threadIdx.x - kGProd);
+  float acc[kGN / 2];
+#pragma unroll
+  for (int i = 0; i < kGN / 2; ++i) {
+    acc[i] = 0.f;
+    tot[i * 256] = 0.f;
+  }
+  const uint64_t z_a = desc(sm, 16, 1024);
+  const uint64_t g_b = desc(sm + 2 * kGZ + cw * kGN * 128, 16, 1024);
+  for (int n0 = 0; n0 < nst; n0 += kGFlush) {
+    const int n1 = min(n0 + kGFlush, nst);
+    for (int n = n0; n < n1; ++n) {
+      const int st = n % kGStages;
+      mbar_wait(&full[st], (n / kGStages) & 1);
+      const uint64_t so = (uint64_t)(st * kGStage) >> 4;
+      const uint64_t zd = z_a + so, gd = g_b + so;
+      wg_fence();
+#pragma unroll
+      for (int o = 0; o < kGCols * 4; o += 32) {      // k-steps of 8 columns
+        wgmma_tf32_n104(acc, at(zd, kGZ + o), at(gd, o), 1);     // lo hi
+        wgmma_tf32_n104(acc, at(zd, o), at(gd, kGG + o), 1);     // hi lo
+        wgmma_tf32_n104(acc, at(zd, o), at(gd, o), 1);           // hi hi
+      }
+      wg_commit();
+      wg_wait<1>();                        // the stage before has been read
+      if (n > n0) mbar_arrive(&empty[(n - 1) % kGStages]);
+    }
+    wg_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(&empty[(n1 - 1) % kGStages]);
+#pragma unroll
+    for (int i = 0; i < kGN / 2; ++i) {    // Kahan; acc keeps the compensation
+      const float t0 = tot[i * 256];
+      const float u = t0 + acc[i];
+      acc[i] = acc[i] - (u - t0);
+      tot[i * 256] = u;
+    }
   }
 
 #pragma unroll
-  for (int b = 0; b < kNi; ++b)
+  for (int i = 0; i < kGN / 8; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int j = j0 + warp * 16 + g + (e >> 1) * 8;
-      const int k = k0 + b * 8 + 2 * t + (e & 1);
+      const int j = j0 + 16 * ww + g + 8 * (e >> 1);
+      const int k = k0 + cw * kGN + 8 * i + 2 * t + (e & 1);
       if (j >= HM || k >= K) continue;
-      const float x = tot[b][e] + ncm[b][e];
+      const float x = tot[(4 * i + e) * 256] + acc[4 * i + e];
       if (part)
         part[((long long)s * K + k) * HM + j] = x;
       else
@@ -533,41 +603,45 @@ extern "C" int cin_layer(const float* xk, const float* x0, const float* w,
 
 // g [B, K, D], x_k [B, H, D], x_0 [B, M, D] -> dw [K, H, M], float32: the
 // weight gradient of cin_layer for the upstream gradient g.  The
-// ceil(B / 8) chunks of 8 samples are split into S parts of cps chunks
-// each, (S - 1) * cps < chunks <= S * cps; when S > 1 part is S * K * H * M
-// floats of scratch from the caller (else null).
+// ceil(B * D / 32) stages of 32 columns are split into S parts of cps
+// stages each, (S - 1) * cps < stages <= S * cps.  Scratch from the
+// caller, float32: gprep, ceil(K / 208) * stages * 13,312 floats (16-byte
+// aligned), and when S > 1 part, S * K * H * M floats (else null).
 extern "C" int cin_weight_grad(const float* g, const float* xk,
-                               const float* x0, float* dw, float* part,
-                               int B, int H, int M, int D, int K, int S,
-                               int cps, void* stream) {
+                               const float* x0, float* dw, float* gprep,
+                               float* part, int B, int H, int M, int D,
+                               int K, int S, int cps, void* stream) {
   if (H <= 0 || M <= 0 || K <= 0) return (int)cudaSuccess;
   if (B < 0 || D <= 0 || (long long)H * M >= (1 << 30) ||
       (long long)B * D >= (1LL << 40))
     return (int)cudaErrorInvalidValue;
-  const int n_chunks = (B + kGBc - 1) / kGBc;
+  const long long n_stages = ((long long)B * D + kGCols - 1) / kGCols;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const long long n_out = (long long)K * H * M;
-  if (n_chunks == 0)
+  if (n_stages == 0)
     return (int)cudaMemsetAsync(dw, 0, n_out * sizeof(float), st);
-  if (S < 1 || cps < 1 || (long long)S * cps < n_chunks ||
-      (S > 1 && ((long long)(S - 1) * cps >= n_chunks || part == nullptr)))
+  if (n_stages > 0x7fffffffLL || S < 1 || cps < 1 ||
+      (long long)S * cps < n_stages ||
+      (S > 1 && ((long long)(S - 1) * cps >= n_stages || part == nullptr)))
     return (int)cudaErrorInvalidValue;
-  const int nh = (kGJt - 1) / M + 2;
-  const size_t smem =
-      (size_t)2 * kGBc * D * (M + nh + kKt) * sizeof(float) +
-      (size_t)3 * kGBc * D * sizeof(int);
-  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
   const int n_jtiles = (H * M + kGJt - 1) / kGJt;
-  const int n_ktiles = (K + kKt - 1) / kKt;
+  const int n_ktiles = (K + kGKt - 1) / kGKt;
   const long long blocks = (long long)n_jtiles * n_ktiles * S;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      cin_wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  if (blocks > 0x7fffffffLL || gprep == nullptr ||
+      (uintptr_t)gprep % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const long long n_prep = (long long)n_ktiles * n_stages * kGKt * kGCols;
+  const long long pb = (n_prep + 255) / 256;
+  prep_g_kernel<<<(unsigned)(pb < 65536 ? pb : 65536), 256, 0, st>>>(
+      g, gprep, K, D, (long long)B * D, n_stages, n_ktiles);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  cin_wgrad_kernel<<<(unsigned)blocks, kGThreads, smem, st>>>(
-      g, xk, x0, dw, S > 1 ? part : nullptr, B, H, M, D, K, n_jtiles,
-      n_ktiles, cps, n_chunks, nh);
+  err = cudaFuncSetAttribute(
+      cin_wgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kGSmem);
+  if (err != cudaSuccess) return (int)err;
+  cin_wgrad_kernel<<<(unsigned)blocks, kGThreads, kGSmem, st>>>(
+      gprep, xk, x0, dw, S > 1 ? part : nullptr, B, H, M, D, K, n_jtiles,
+      n_ktiles, cps, (int)n_stages);
   err = cudaGetLastError();
   if (err != cudaSuccess || S == 1) return (int)err;
   sum_splits_kernel<<<(unsigned)((n_out + 255) / 256), 256, 0, st>>>(

@@ -12,52 +12,138 @@
 //     dV = P^T dO,   dS = P o (dO v^T - D),   D = rowsum(dO o o)
 //     dQ = dS k / sqrt(d),   dK = dS^T q / sqrt(d)
 //
-// FA2's backward in three launches, deterministic (no atomics): a tiny
-// kernel for D (one warp a row), one block a (bh, 64 keys) for dK and dV,
-// which recomputes P over the query tiles that reach its keys (under the
-// causal mask those at or below the diagonal), and one block a (bh, 64
-// queries) for dQ over the key tiles.  Each gradient is summed in
-// registers by the block that owns it, so no partial sums leave the block.
+// Bound on an H100: operations, the five products S, dP, dV, dK and dQ of
+// 2 * Sq * Sk * d each (half when causal) at 989 TFLOP/s dense bf16 (f32:
+// the same products at the f32 rate, or three bf16 products each on the
+// tensor cores); bytes: q, k, v, o, dO, dQ, dK, dV once each and L, D.
 //
-// - bf16: mma.sync.m16n8k16 with f32 accumulators, as the forward.  Four
-//   warps own 16 rows each.  dK/dV: K and V of the block's keys stay in
-//   shared memory; Q and dO stream through in tiles of 32 queries
-//   (double-buffered cp.async), S^T = K Q^T and dP^T = V dO^T are formed
-//   in registers, P^T and dS^T are rounded to bf16 in registers and used
-//   directly as the A operands of P^T dO and dS^T Q (the m16n8k16 C layout
-//   is its A layout); 32 query columns a tile keep the two f32 [16, d]
-//   accumulators and the two score tiles inside 255 registers.  dQ: Q
-//   and dO of the block's queries stay in shared memory, K and V stream
-//   through in tiles of 64 keys.
-// - f32: plain f32 FMA (no tensor cores), 64 x 64 tiles in shared memory,
-//   each of 256 threads a 4 x 4 block of scores and 4 rows of the
-//   accumulators.  Right first; the f32 path trains the small configs.
-//
-// Bound on an H100: operations, 5 products of 2 * Sq * Sk * d (S, dP, dV,
-// dK, dQ; half when causal) at 989 TFLOP/s dense bf16 or 67 TFLOP/s f32;
-// bytes: q, k, v, o, dO, dQ, dK, dV once each and L, D.
+// Design: FA2's algorithm on Hopper's machinery, in three launches.
+// - delta_kernel: D, one warp a row; it also zeroes dqacc, the f32 dQ
+//   accumulator the caller passes as scratch.
+// - bwd_kernel: a block owns 64 keys of one (batch, head); their K and V
+//   stay in shared memory.  Q, dO, L and D stream through a 3-stage (f32:
+//   2-stage) mbarrier ring in tiles of 64 queries.  In bf16 with d = 64
+//   or 128 one producer thread fills it by TMA (128-byte swizzle, L and D
+//   by bulk copies); else the producer warpgroup's 128 threads load, split
+//   (f32) and store the same swizzled layout.
+// - bf16: two consumer warpgroups split each tile's products.  The first
+//   forms S^T = K Q^T (wgmma from shared memory), P^T in registers, hands
+//   f32 P^T to the second through shared memory in accumulator order (each
+//   thread reads back its own elements), takes dV += P^T dO with P^T as
+//   the register A operand, and dQ's first half of d.  The second forms
+//   dP^T = V dO^T and dS^T = P^T (dP^T - D), stores dS^T once in bf16,
+//   takes dK += dS^T Q (A from registers) and dQ's second half.  Named
+//   barriers order the two hand-offs.  One [64, d] accumulator a
+//   warpgroup fits the 168 registers a thread of 384 may hold; two (dK and
+//   dV in one warpgroup, 128 keys a block) spilled even under setmaxnreg.
+// - dQ_tile = dS K is a wgmma from dS^T and K in shared memory, written to
+//   shared memory in the accumulator's own order and added into dqacc by
+//   one cp.reduce.async.bulk .add.f32 a half-tile.  So S and dP are formed
+//   once: five products, where a separate dQ kernel would recompute both.
+// - dq_convert: dQ = dqacc / sqrt(d) in the input type, in [BH, Sq, d]
+//   order.
+// - f32 on the tensor cores: one consumer warpgroup takes every product,
+//   each as lo.hi + hi.lo + hi.hi of bf16 splits hi = bf16(x), lo =
+//   bf16(x - hi) (the forward's split, flash_attn.cu).  K, V, Q and dO are
+//   split once, by the producer, as their tiles land in shared memory; P^T
+//   and dS^T in registers.
+// - Causal: a block walks only the query tiles at or after its first key
+//   and masks only the diagonal ones.  The key blocks of a head are
+//   adjacent in the grid (they share its Q, dO and dQ rows in L2), its
+//   first keys (the most query tiles) first.
+// - Head widths 1..128, zero-padded to 64 or 128 columns.
+// - Determinism: dQ's partial sums from the key blocks are added by the
+//   bulk reduce-add in an order that varies from run to run (f32
+//   additions in L2); dK and dV are summed in registers, in a fixed order.
 
+#include <dlfcn.h>
 #include <math.h>
+#include <string.h>
+
+#include <cuda.h>   // CUtensorMap and its enums (types only: no libcuda link)
+#include <type_traits>
 
 #include "bf16_mma.cuh"
+#include "hopper.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
+using namespace hopper;
 
-constexpr int kWarpsB = 4;           // bf16 kernels: warps a block
-constexpr int kRows = 16 * kWarpsB;  // keys (dK/dV) or queries (dQ) a block
-constexpr int kQt = 32;              // queries a tile of the dK/dV loop
-constexpr int kKt = 64;              // keys a tile of the dQ loop
-constexpr int kF = 64;               // f32 kernels: rows and columns a tile
+constexpr int kBq = 64;            // queries a tile
+constexpr int kBk = 64;            // keys a block (the wgmma M of its tiles)
 constexpr float kLog2eF = 1.4426950408889634f;
 
-// D[r] = sum_c dO[r, c] o[r, c], one warp a row
+// A block: a producer warpgroup and, in bf16, two consumer warpgroups that
+// split each tile's products (384 threads, up to 168 registers a thread),
+// in f32 one that takes them all (256 threads, up to 255 registers: its
+// products take every operand in two parts).  Shared memory in bytes,
+// every tile 1024-byte aligned.
+template <int DMAX, bool F32>
+struct Cfg {
+  static constexpr int NWG = F32 ? 1 : 2;        // consumer warpgroups
+  static constexpr int THREADS = 128 * (NWG + 1);
+  static constexpr int NR = DMAX / 64;           // 128-byte column regions
+  static constexpr int NP = F32 ? 2 : 1;         // bf16 parts: hi (and lo)
+  static constexpr int STAGES = F32 ? 2 : 3;     // Q / dO / L / D tiles
+  static constexpr int KV = NR * kBk * 128;      // a part of K or of V
+  static constexpr int QT = NR * kBq * 128;      // a part of a Q or dO tile
+  static constexpr int DS = kBk * 128;           // a part of dS^T [64][64]
+  static constexpr int PX = 32 * 128 * 4;        // P^T, f32, thread order
+  static constexpr int DQ = kBq * DMAX / 2 * 4;  // a half-tile of dQ, f32
+  static constexpr int K_OFF = 0;                // [NP] K
+  static constexpr int V_OFF = K_OFF + NP * KV;  // [NP] V
+  static constexpr int Q_OFF = V_OFF + NP * KV;  // [STAGES][NP] Q
+  static constexpr int DO_OFF = Q_OFF + STAGES * NP * QT;    // and dO
+  static constexpr int DS_OFF = DO_OFF + STAGES * NP * QT;   // [NWG][NP]
+  static constexpr int PX_OFF = DS_OFF + NWG * NP * DS;      // [NWG - 1][2]
+  static constexpr int DQ_OFF = PX_OFF + (NWG - 1) * 2 * PX;  // [NWG]
+  static constexpr int LD_OFF = DQ_OFF + NWG * DQ;  // [STAGES][2][kBq] L, D
+  static constexpr int BAR_OFF = LD_OFF + STAGES * 2 * kBq * 4;
+  static constexpr int SMEM = BAR_OFF + (1 + 2 * STAGES) * 8 + 1024;
+};
+
+// 8 values of a row from column c0, 0 past d; 16-byte loads when vec
+__device__ __forceinline__ void load8(const float* row, int c0, int d,
+                                      int vec, float (&x)[8]) {
+  if (vec && c0 + 8 <= d) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(row + c0));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(row + c0 + 4));
+    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+    x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) x[e] = c0 + e < d ? __ldg(row + c0 + e) : 0.f;
+  }
+}
+__device__ __forceinline__ void load8(const bf16* row, int c0, int d,
+                                      int vec, float (&x)[8]) {
+  if (vec && c0 + 8 <= d) {
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(row + c0));
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[e]));
+      x[2 * e] = f.x;
+      x[2 * e + 1] = f.y;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      x[e] = c0 + e < d ? __bfloat162float(row[c0 + e]) : 0.f;
+  }
+}
+
+// D[r] = sum_c dO[r, c] o[r, c], one warp a row; dqacc's row zeroed.
+// 16-byte loads when vec (d a multiple of 16 bytes, o and dO aligned).
 template <typename T>
 __global__ void delta_kernel(const T* __restrict__ o,
                              const T* __restrict__ dout,
-                             float* __restrict__ delta, long long rows,
-                             int d) {
+                             float* __restrict__ delta,
+                             float* __restrict__ dqacc, long long rows,
+                             int d, int dmax, int vec) {
   const long long row =
       (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
@@ -65,632 +151,640 @@ __global__ void delta_kernel(const T* __restrict__ o,
   const T* orow = o + row * d;
   const T* drow = dout + row * d;
   float acc = 0.f;
-  for (int c = lane; c < d; c += 32) acc += ld(orow + c) * ld(drow + c);
+  if (vec) {
+    for (int c = 8 * lane; c < d; c += 256) {
+      float xo[8], xd[8];
+      load8(orow, c, d, 1, xo);
+      load8(drow, c, d, 1, xd);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) acc += xo[e] * xd[e];
+    }
+  } else {
+    for (int c = lane; c < d; c += 32) acc += ld(orow + c) * ld(drow + c);
+  }
 #pragma unroll
   for (int off = 16; off; off >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
   if (lane == 0) delta[row] = acc;
+  for (int c = 4 * lane; c < dmax; c += 128)
+    *reinterpret_cast<float4*>(dqacc + row * dmax + c) =
+        make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
-// rows x DMAX bf16 from global (row stride d) into shared (row stride
-// DMAX + 8), columns >= d zero; cp.async when vec (d % 8 == 0, aligned)
-template <int DMAX>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
-                                          int rows, int d, int vec) {
-  constexpr int DP = DMAX + 8;
+// rows x DMAX of src (row stride d) into the 128-byte swizzled regions of
+// a tile (region r holds columns 64 r .. 64 r + 63 of every row), as bf16
+// hi and, when SPLIT, lo; the producer warpgroup's 128 threads (tid)
+template <int DMAX, bool SPLIT, typename T>
+__device__ __forceinline__ void fill_tile(uint8_t* hi, uint8_t* lo,
+                                          const T* src, int rows, int d,
+                                          int vec, int tid) {
+  constexpr int CH = DMAX / 8;             // 16-byte chunks a row
+  constexpr int NB = SPLIT ? 4 : 1;        // chunks a thread loads at once
+  for (int i0 = tid; i0 < rows * CH; i0 += 128 * NB) {
+    float x[NB][8];
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      const int i = i0 + 128 * b;
+      if (i < rows * CH)
+        load8(src + (long long)(i / CH) * d, (i % CH) * 8, d, vec, x[b]);
+    }
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      const int i = i0 + 128 * b;
+      if (i >= rows * CH) break;
+      const int r = i / CH;
+      const int ch = i % CH;
+      const uint32_t off = (ch / 8) * rows * 128 + sw128(r, ch % 8);
+      uint4 h, l;
+      if constexpr (SPLIT) {
+        split(x[b][0], x[b][1], h.x, l.x);
+        split(x[b][2], x[b][3], h.y, l.y);
+        split(x[b][4], x[b][5], h.z, l.z);
+        split(x[b][6], x[b][7], h.w, l.w);
+        *reinterpret_cast<uint4*>(lo + off) = l;
+      } else {
+        h = make_uint4(pack(x[b][0], x[b][1]), pack(x[b][2], x[b][3]),
+                       pack(x[b][4], x[b][5]), pack(x[b][6], x[b][7]));
+      }
+      *reinterpret_cast<uint4*>(hi + off) = h;
+    }
+  }
+}
+
+// S^T- or dP^T-shaped product, N = 64 queries: d (+)= A B
+template <int N, int TA, int TB>
+__device__ __forceinline__ void ss(float (&d)[N / 2], uint64_t da,
+                                   uint64_t db, int scale_d) {
+  if constexpr (N == 64)
+    wgmma_ss64<TA, TB>(d, da, db, scale_d);
+  else
+    wgmma_ss32<TA, TB>(d, da, db, scale_d);
+}
+template <int N>
+__device__ __forceinline__ void rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                   uint64_t db) {
+  if constexpr (N == 128)
+    wgmma_rs128<1>(d, a, db, 1);
+  else
+    wgmma_rs64<1>(d, a, db, 1);
+}
+
+// the two floats of a bf16 pair
+__device__ __forceinline__ float2 unpack(uint32_t v) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v));
+}
+
+__device__ __forceinline__ void put(float* p, float x) { *p = x; }
+__device__ __forceinline__ void put(bf16* p, float x) {
+  *p = __float2bfloat16(x);
+}
+
+// A warpgroup's [64, DMAX] accumulator (times mul) as rows of dst [64, d]:
+// into the shared-memory tile stg (rows of DMAX + 16 / sizeof(T), so that
+// the accumulator's pairs land on distinct banks), then copied out in 16
+// bytes a thread when vec (d a multiple of 16 bytes, dst aligned), else an
+// element a thread; named barrier `bar` orders the warpgroup's 128 threads
+template <int DMAX, typename T>
+__device__ __forceinline__ void store_rows(const float (&acc)[DMAX / 2],
+                                           float mul, T* stg, T* dst, int d,
+                                           int vec, int bar) {
+  constexpr int RS = DMAX + 16 / (int)sizeof(T);
+  constexpr int CH = 16 / (int)sizeof(T);        // elements a 16-byte chunk
+  const int tw = threadIdx.x % 128;
+  const int row = 16 * (tw / 32) + (tw % 32) / 4;
+  const int col = 2 * (tw % 4);
+#pragma unroll
+  for (int i = 0; i < DMAX / 8; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      T* at_ = stg + (row + 8 * h) * RS + 8 * i + col;
+      put(at_, acc[4 * i + 2 * h] * mul);
+      put(at_ + 1, acc[4 * i + 2 * h + 1] * mul);
+    }
+  named_sync(bar, 128);
   if (vec) {
-    for (int i = threadIdx.x; i < rows * DMAX / 8; i += blockDim.x) {
-      const int r = i / (DMAX / 8);
-      const int c = (i % (DMAX / 8)) * 8;
-      const bool in = c < d;
-      cp_async16(dst + r * DP + c, src + (long long)r * d + (in ? c : 0),
-                 in);
+    for (int c = tw; c < kBk * (DMAX / CH); c += 128) {
+      const int r = c / (DMAX / CH);
+      const int k = (c % (DMAX / CH)) * CH;
+      if (k < d)
+        *reinterpret_cast<uint4*>(dst + (long long)r * d + k) =
+            *reinterpret_cast<const uint4*>(stg + r * RS + k);
     }
   } else {
-    for (int i = threadIdx.x; i < rows * DMAX; i += blockDim.x) {
-      const int r = i / DMAX;
-      const int c = i % DMAX;
-      dst[r * DP + c] =
-          c < d ? src[(long long)r * d + c] : __float2bfloat16(0.f);
-    }
+    for (int c = tw; c < kBk * d; c += 128)
+      dst[c] = stg[(c / d) * RS + c % d];
   }
+  named_sync(bar, 128);                  // before stg is written again
 }
 
-template <int DMAX>
-__global__ void __launch_bounds__(32 * kWarpsB, 1)
-dkdv_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-          const bf16* __restrict__ v, const bf16* __restrict__ dout,
-          const float* __restrict__ lse, const float* __restrict__ delta,
-          bf16* __restrict__ dk, bf16* __restrict__ dv, int BH, int Sq,
-          int Sk, int d, int causal, int vec, float scale,
-          float scale_log2) {
-  constexpr int DP = DMAX + 8;
-  constexpr int KD = DMAX / 16;      // k-steps over d
-  constexpr int ND = DMAX / 8;       // 8-wide column tiles of dK, dV
-  constexpr int NS = kQt / 8;        // 8-wide query tiles of S^T
-  constexpr int TK = kRows * DP;
-  constexpr int TQ = kQt * DP;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* ks = reinterpret_cast<bf16*>(smem_raw);   // [kRows][DP]
-  bf16* vs = ks + TK;                             // [kRows][DP]
-  bf16* qs = vs + TK;                             // [2][kQt][DP]
-  bf16* dos = qs + 2 * TQ;                        // [2][kQt][DP]
-  float* ls = reinterpret_cast<float*>(dos + 2 * TQ);   // [2][kQt] L log2e
-  float* dls = ls + 2 * kQt;                            // [2][kQt] D
+// What a consumer warpgroup needs of its block.
+struct Block {
+  uint8_t* sm;             // the 1024-byte aligned shared memory
+  uint64_t* kv_full;       // K and V landed
+  uint64_t* full;          // [STAGES] a tile landed
+  uint64_t* empty;         // [STAGES] a tile consumed
+  const float* lds;        // [STAGES][2][kBq] L, D
+  float* dqacc;
+  void* dk;
+  void* dv;
+  long long bh;
+  int j0, it0, ntiles, n_qt, Sk, d, causal;
+  int vec;                 // d a multiple of 16 bytes, the tensors aligned
+  float scale, scale_log2;
+};
 
-  const int kt = blockIdx.x / BH;        // key tile 0 (most queries) first
-  const long long bh = blockIdx.x % BH;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int j0 = kt * kRows;
-  const int jrow = j0 + 16 * warp + g;   // the thread's keys jrow, + 8
+// A consumer warpgroup's tiles.  ROLE 0 (f32): every product.  In bf16
+// two warpgroups share the block's keys: ROLE 1 forms S^T and P^T, takes
+// dV += P^T dO and dQ's first half of d; ROLE 2 forms dP^T and, with P^T
+// from ROLE 1, dS^T, takes dK += dS^T Q and dQ's second half.  Named
+// barriers: 1 P^T stored (ROLE 1 arrives, 2 waits), 2 dS^T stored (2
+// arrives, 1 waits), 3 a warpgroup's own dS^T stores, 4 + the warpgroup
+// its dQ buffer.  Neither side can arrive twice before the other waits:
+// each waits for the other's arrival of the tile before its next one.
+template <int DMAX, bool F32, int ROLE>
+__device__ __forceinline__ void consume(const Block& b) {
+  using C = Cfg<DMAX, F32>;
+  constexpr int NP = C::NP;
+  constexpr int STAGES = C::STAGES;
+  constexpr bool S_SIDE = ROLE != 2;       // S^T, P^T, dV, dQ's first half
+  constexpr bool D_SIDE = ROLE != 1;       // dP^T, dS^T, dK, dQ's second
+  constexpr bool SPLIT = ROLE != 0;
+  constexpr int ND = DMAX / 2;             // accumulators of a [64, DMAX] tile
+  constexpr int KL = C::KV;                // offsets of the lo parts
+  constexpr int QL = C::QT;
+  constexpr int DL = C::DS;
+  using T = typename std::conditional<F32, float, bf16>::type;
+  uint8_t* sm = b.sm;
+  const int cw = ROLE == 2 ? 1 : 0;
+  const int tw = threadIdx.x % 128;
+  const int ww = tw / 32;
+  const int lane = tw % 32;
+  const int g = lane / 4;
+  const int t4 = lane % 4;
+  const int jr = b.j0 + 16 * ww + g;       // the thread's keys jr, jr + 8
 
-  const bf16* qh = q + bh * Sq * d;
-  const bf16* doh = dout + bh * Sq * d;
-  const float* lh = lse + bh * Sq;
-  const float* dh = delta + bh * Sq;
-  load_rows<DMAX>(ks, k + (bh * Sk + j0) * d, kRows, d, vec);
-  load_rows<DMAX>(vs, v + (bh * Sk + j0) * d, kRows, d, vec);
-  auto load_q = [&](int it, int st) {
-    const int i0 = it * kQt;
-    load_rows<DMAX>(qs + st * TQ, qh + (long long)i0 * d, kQt, d, vec);
-    load_rows<DMAX>(dos + st * TQ, doh + (long long)i0 * d, kQt, d, vec);
-    if (threadIdx.x < kQt) {
-      ls[st * kQt + threadIdx.x] = lh[i0 + threadIdx.x] * kLog2eF;
-      dls[st * kQt + threadIdx.x] = dh[i0 + threadIdx.x];
-    }
-  };
-
-  // ldmatrix lane offsets (see flash_attn.cu): A from the warp's 16 rows
-  // of a row-major [rows, d] tile; B from a row-major [n, k] tile (two
-  // 8-wide n-tiles of a 16-deep k-step); B from a row-major [k, n] tile
-  // through .trans
-  const int a_off = (16 * warp + (lane & 15)) * DP + ((lane >> 4) << 3);
-  const int b_row = (lane & 7) + ((lane >> 4) << 3);
-  const int b_col = ((lane >> 3) & 1) << 3;
-  const int t_row = (lane & 7) + (((lane >> 3) & 1) << 3);
-  const int t_col = (lane >> 4) << 3;
-
-  float dka[ND][4], dva[ND][4];
+  float dva[S_SIDE ? ND : 1], dka[D_SIDE ? ND : 1];
 #pragma unroll
-  for (int j = 0; j < ND; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
-
-  const int it0 = causal ? j0 / kQt : 0;   // queries before j0 see no key
-  const int n_it = Sq / kQt;
-  load_q(it0, 0);
-  cp_commit();                              // with K's and V's copies
-  for (int it = it0; it < n_it; ++it) {
-    const int st = (it - it0) & 1;
-    if (it + 1 < n_it) {
-      load_q(it + 1, st ^ 1);               // read by no warp since it - 1
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    const bf16* qt = qs + st * TQ;
-    const bf16* dot = dos + st * TQ;
-    const float* lt = ls + st * kQt;
-    const float* dt = dls + st * kQt;
-    const int i0 = it * kQt;
-
-    // S^T = K Q^T, dP^T = V dO^T: rows the warp's 16 keys, columns the
-    // tile's queries
-    float s[NS][4], dp[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t ka[4], va[4];
-      ldsm_x4(ka, ks + a_off + 16 * kk);
-      ldsm_x4(va, vs + a_off + 16 * kk);
-#pragma unroll
-      for (int np = 0; np < NS / 2; ++np) {
-        const int off = (16 * np + b_row) * DP + 16 * kk + b_col;
-        uint32_t b[4];
-        ldsm_x4(b, qt + off);
-        mma(s[2 * np], ka, b[0], b[1]);
-        mma(s[2 * np + 1], ka, b[2], b[3]);
-        ldsm_x4(b, dot + off);
-        mma(dp[2 * np], va, b[0], b[1]);
-        mma(dp[2 * np + 1], va, b[2], b[3]);
-      }
-    }
-    // P^T into s, dS^T into dp
-    const bool diag = causal && i0 < j0 + kRows;
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ic = 8 * j + 2 * t + (e & 1);     // query in the tile
-        float p = ex2(fmaf(s[j][e], scale_log2, -lt[ic]));
-        if (diag && i0 + ic < jrow + 8 * (e >> 1)) p = 0.f;
-        s[j][e] = p;
-        dp[j][e] = p * (dp[j][e] - dt[ic]);
-      }
-    // dV += P^T dO, dK += dS^T Q over the tile's queries
-#pragma unroll
-    for (int kk = 0; kk < kQt / 16; ++kk) {
-      uint32_t pa[4], sa[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int jn = 2 * kk + (r >> 1);
-        const int e0 = (r & 1) * 2;
-        pa[r] = pack(s[jn][e0], s[jn][e0 + 1]);
-        sa[r] = pack(dp[jn][e0], dp[jn][e0 + 1]);
-      }
-#pragma unroll
-      for (int np = 0; np < ND / 2; ++np) {
-        const int off = (16 * kk + t_row) * DP + 16 * np + t_col;
-        uint32_t b[4];
-        ldsm_x4_trans(b, dot + off);
-        mma(dva[2 * np], pa, b[0], b[1]);
-        mma(dva[2 * np + 1], pa, b[2], b[3]);
-        ldsm_x4_trans(b, qt + off);
-        mma(dka[2 * np], sa, b[0], b[1]);
-        mma(dka[2 * np + 1], sa, b[2], b[3]);
-      }
-    }
-    __syncthreads();                        // before the next load lands
+  for (int i = 0; i < ND; ++i) {
+    if constexpr (S_SIDE) dva[i] = 0.f;
+    if constexpr (D_SIDE) dka[i] = 0.f;
   }
+  // descriptor bases: K and V (A of S^T and dP^T, K-major)
+  const uint64_t k_a = desc(sm + C::K_OFF, 16, 1024);
+  const uint64_t v_a = desc(sm + C::V_OFF, 16, 1024);
+  float4* px = reinterpret_cast<float4*>(sm + C::PX_OFF);
 
+  mbar_wait(b.kv_full, 0);
+  for (int n = 0; n < b.ntiles; ++n) {
+    const int st = n % STAGES;
+    const int it = b.it0 + n;
+    const int i0 = it * kBq;
+    mbar_wait(&b.full[st], (n / STAGES) & 1);
+    const uint8_t* qs = sm + C::Q_OFF + st * NP * C::QT;
+    const uint8_t* dos = sm + C::DO_OFF + st * NP * C::QT;
+    const float* Ls = b.lds + st * 2 * kBq;
+    const float* Ds = Ls + kBq;
+    uint8_t* dss = sm + C::DS_OFF + (SPLIT ? (n & 1) : 0) * NP * C::DS;
+    float sc[32];
+    // A fragments (m64 k16, one per 16 queries) of P^T and dS^T, and
+    // their lo parts in f32
+    uint32_t pa[4][4], sa[4][4];
+    uint32_t pl[F32 ? 4 : 1][4], sl[F32 ? 4 : 1][4];
+
+    if constexpr (S_SIDE) {
+      // S^T = K Q^T over d: rows the block's keys, columns the queries
+      const uint64_t q_b = desc(qs, 16, 1024);
+      wg_fence();
 #pragma unroll
-  for (int j = 0; j < ND; ++j)
+      for (int kk = 0; kk < DMAX / 16; ++kk) {
+        const int ka = (kk / 4) * kBk * 128 + (kk % 4) * 32;
+        const int qa = (kk / 4) * kBq * 128 + (kk % 4) * 32;
+        if constexpr (F32) {
+          ss<64, 0, 0>(sc, at(k_a, ka + KL), at(q_b, qa), kk > 0);
+          ss<64, 0, 0>(sc, at(k_a, ka), at(q_b, qa + QL), 1);
+        }
+        ss<64, 0, 0>(sc, at(k_a, ka), at(q_b, qa), F32 || kk > 0);
+      }
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(sc);
+      const bool diag = b.causal && i0 < b.j0 + kBk;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int c = 8 * j + 2 * t + (e & 1);
-      if (c < d) {
-        const long long at = (bh * Sk + jrow + 8 * (e >> 1)) * d + c;
-        dk[at] = __float2bfloat16(dka[j][e] * scale);
-        dv[at] = __float2bfloat16(dva[j][e]);
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qc = 8 * i + 2 * t4 + (e & 1);   // query in the tile
+          float p = ex2(fmaf(sc[4 * i + e], b.scale_log2,
+                             -Ls[qc] * kLog2eF));
+          if (diag && i0 + qc < jr + 8 * (e >> 1)) p = 0.f;
+          sc[4 * i + e] = p;
+        }
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int x = 4 * (2 * kk + (r >> 1)) + (r & 1) * 2;
+          if constexpr (F32)
+            split(sc[x], sc[x + 1], pa[kk][r], pl[kk][r]);
+          else
+            pa[kk][r] = pack(sc[x], sc[x + 1]);
+        }
+      if constexpr (SPLIT) {               // f32 P^T for ROLE 2, in its order
+#pragma unroll
+        for (int c4 = 0; c4 < 8; ++c4)
+          px[((n & 1) * 8 + c4) * 128 + tw] =
+              make_float4(sc[4 * c4], sc[4 * c4 + 1], sc[4 * c4 + 2],
+                          sc[4 * c4 + 3]);
+        named_arrive(1, 256);
       }
     }
+    if constexpr (D_SIDE) {
+      // dP^T = V dO^T; dS^T = P^T (dP^T - D) with P^T as packed
+      const uint64_t do_b = desc(dos, 16, 1024);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < DMAX / 16; ++kk) {
+        const int ka = (kk / 4) * kBk * 128 + (kk % 4) * 32;
+        const int qa = (kk / 4) * kBq * 128 + (kk % 4) * 32;
+        if constexpr (F32) {
+          ss<64, 0, 0>(sc, at(v_a, ka + KL), at(do_b, qa), kk > 0);
+          ss<64, 0, 0>(sc, at(v_a, ka), at(do_b, qa + QL), 1);
+        }
+        ss<64, 0, 0>(sc, at(v_a, ka), at(do_b, qa), F32 || kk > 0);
+      }
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(sc);
+      if constexpr (SPLIT) named_sync(1, 256);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int x = 4 * (2 * kk + (r >> 1)) + (r & 1) * 2;
+          const int qc = 8 * (2 * kk + (r >> 1)) + 2 * t4;
+          float2 p;
+          if constexpr (SPLIT) {           // ROLE 1's f32 P^T
+            const float4 p4 = px[((n & 1) * 8 + x / 4) * 128 + tw];
+            p = x % 4 == 0 ? make_float2(p4.x, p4.y)
+                           : make_float2(p4.z, p4.w);
+          } else {                         // the packed parts: P^T to 2^-17
+            p = unpack(pa[kk][r]);
+            const float2 l = unpack(pl[kk][r]);
+            p.x += l.x;
+            p.y += l.y;
+          }
+          const float d0 = p.x * (sc[x] - Ds[qc]);
+          const float d1 = p.y * (sc[x + 1] - Ds[qc + 1]);
+          if constexpr (F32)
+            split(d0, d1, sa[kk][r], sl[kk][r]);
+          else
+            sa[kk][r] = pack(d0, d1);
+        }
+      // dS^T [keys][queries] into shared memory for dQ
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const uint32_t off = sw128(16 * ww + g + 8 * h, i) + t4 * 4;
+          *reinterpret_cast<uint32_t*>(dss + off) =
+              sa[i / 2][(i % 2) * 2 + h];
+          if constexpr (F32)
+            *reinterpret_cast<uint32_t*>(dss + DL + off) =
+                sl[i / 2][(i % 2) * 2 + h];
+        }
+      fence_async_shared();
+      if constexpr (SPLIT) named_arrive(2, 256);
+    }
+
+    // dV += P^T dO, dK += dS^T Q over the tile's queries (B MN-major)
+    const uint64_t q_t = desc(qs, kBq * 128, 1024);
+    const uint64_t do_t = desc(dos, kBq * 128, 1024);
+    wg_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if constexpr (S_SIDE) {
+        if constexpr (F32) {
+          rs<DMAX>(dva, pa[kk], at(do_t, kk * 2048 + QL));
+          rs<DMAX>(dva, pl[kk], at(do_t, kk * 2048));
+        }
+        rs<DMAX>(dva, pa[kk], at(do_t, kk * 2048));
+      }
+      if constexpr (D_SIDE) {
+        if constexpr (F32) {
+          rs<DMAX>(dka, sa[kk], at(q_t, kk * 2048 + QL));
+          rs<DMAX>(dka, sl[kk], at(q_t, kk * 2048));
+        }
+        rs<DMAX>(dka, sa[kk], at(q_t, kk * 2048));
+      }
+    }
+    wg_commit();
+    wg_wait<0>();
+    if constexpr (S_SIDE) fence_regs(dva);
+    if constexpr (D_SIDE) fence_regs(dka);
+    mbar_arrive(&b.empty[st]);
+
+    // dQ_tile = dS K over the block's keys, a half of d at a time, each
+    // added into dqacc
+    if constexpr (ROLE == 1)
+      named_sync(2, 256);                  // ROLE 2 has stored dS^T
+    else
+      named_sync(3, 128);                  // this warpgroup has
+    const uint64_t ds_a = desc(dss, 8192, 1024);     // MN-major (queries)
+#pragma unroll 1
+    for (int h = ROLE == 2 ? 1 : 0; h < (ROLE == 1 ? 1 : 2); ++h) {
+      const int col0 = h * (DMAX / 2);
+      const uint64_t k_b = desc(sm + C::K_OFF + (col0 / 64) * kBk * 128 +
+                                    (col0 % 64) * 2,
+                                kBk * 128, 1024);    // MN-major (d)
+      float acc[DMAX / 4];
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBk / 16; ++kk) {
+        if constexpr (F32) {
+          ss<DMAX / 2, 1, 1>(acc, at(ds_a, kk * 2048 + DL),
+                             at(k_b, kk * 2048), kk > 0);
+          ss<DMAX / 2, 1, 1>(acc, at(ds_a, kk * 2048),
+                             at(k_b, kk * 2048 + KL), 1);
+        }
+        ss<DMAX / 2, 1, 1>(acc, at(ds_a, kk * 2048), at(k_b, kk * 2048),
+                           F32 || kk > 0);
+      }
+      wg_commit();
+      wg_wait<0>();
+      fence_regs(acc);
+      float* qbuf = reinterpret_cast<float*>(sm + C::DQ_OFF + cw * C::DQ);
+      if (tw == 0) bulk_wait_read();       // the last half-tile has left
+      named_sync(4 + cw, 128);
+#pragma unroll
+      for (int c4 = 0; c4 < DMAX / 16; ++c4)
+        reinterpret_cast<float4*>(qbuf)[c4 * 128 + tw] =
+            make_float4(acc[4 * c4], acc[4 * c4 + 1], acc[4 * c4 + 2],
+                        acc[4 * c4 + 3]);
+      fence_async_shared();
+      named_sync(4 + cw, 128);
+      if (tw == 0) {
+        bulk_reduce_add(
+            b.dqacc + ((b.bh * b.n_qt + it) * 2 + h) * (kBq * DMAX / 2),
+            qbuf, C::DQ);
+        bulk_commit();
+      }
+    }
+  }
+  // dK and dV through shared memory (the tile ring, free once every tile
+  // is consumed: with two warpgroups once both are) into whole rows
+  if constexpr (SPLIT) named_sync(6, 256);
+  T* stg = reinterpret_cast<T*>(sm + C::Q_OFF);
+  const long long row0 = (b.bh * b.Sk + b.j0) * b.d;
+  if constexpr (S_SIDE)
+    store_rows<DMAX>(dva, 1.f, stg, static_cast<T*>(b.dv) + row0, b.d,
+                     b.vec, 4 + cw);
+  if constexpr (D_SIDE)                    // beside ROLE 1's, or after dV
+    store_rows<DMAX>(dka, b.scale,
+                     stg + (SPLIT ? kBk * (DMAX + 16 / (int)sizeof(T)) : 0),
+                     static_cast<T*>(b.dk) + row0, b.d, b.vec, 4 + cw);
 }
 
-template <int DMAX>
-__global__ void __launch_bounds__(32 * kWarpsB, 1)
-dq_bf16(const bf16* __restrict__ q, const bf16* __restrict__ k,
-        const bf16* __restrict__ v, const bf16* __restrict__ dout,
-        const float* __restrict__ lse, const float* __restrict__ delta,
-        bf16* __restrict__ dq, int BH, int Sq, int Sk, int d, int causal,
-        int vec, float scale, float scale_log2) {
-  constexpr int DP = DMAX + 8;
-  constexpr int KD = DMAX / 16;
-  constexpr int ND = DMAX / 8;
-  constexpr int NS = kKt / 8;        // 8-wide key tiles of S
-  constexpr int TR = kRows * DP;
-  constexpr int TK = kKt * DP;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* qs = reinterpret_cast<bf16*>(smem_raw);   // [kRows][DP]
-  bf16* dos = qs + TR;                            // [kRows][DP]
-  bf16* ks = dos + TR;                            // [2][kKt][DP]
-  bf16* vs = ks + 2 * TK;                         // [2][kKt][DP]
+template <int DMAX, bool F32, bool TMA>
+__global__ void __launch_bounds__(Cfg<DMAX, F32>::THREADS, 1)
+bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+           const __grid_constant__ CUtensorMap tm_k,
+           const __grid_constant__ CUtensorMap tm_v,
+           const __grid_constant__ CUtensorMap tm_do,
+           const void* __restrict__ qv, const void* __restrict__ kv,
+           const void* __restrict__ vv, const void* __restrict__ dov,
+           const float* __restrict__ lse, const float* __restrict__ delta,
+           float* __restrict__ dqacc, void* __restrict__ dkv,
+           void* __restrict__ dvv, int Sq, int Sk, int d, int causal,
+           int vec, float scale, float scale_log2) {
+  using C = Cfg<DMAX, F32>;
+  using T = typename std::conditional<F32, float, bf16>::type;
+  constexpr int NP = C::NP;
+  constexpr int STAGES = C::STAGES;
+  extern __shared__ uint8_t smem_raw[];
+  Block b;
+  b.sm = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* sm = b.sm;
+  b.kv_full = reinterpret_cast<uint64_t*>(sm + C::BAR_OFF);
+  b.full = b.kv_full + 1;
+  b.empty = b.full + STAGES;
+  float* lds = reinterpret_cast<float*>(sm + C::LD_OFF);
+  b.lds = lds;
 
-  const int n_qt = Sq / kRows;
-  const int qt = n_qt - 1 - (int)(blockIdx.x / BH);   // heaviest first
-  const long long bh = blockIdx.x % BH;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int q0 = qt * kRows;
-  const int row0 = q0 + 16 * warp + g;   // the thread's rows row0, + 8
+  // the key blocks of a head are adjacent (they share its Q, dO and dQ
+  // rows in L2), the first keys' (the most query tiles) first
+  const int nkb = Sk / kBk;
+  const int kt = blockIdx.x % nkb;
+  b.bh = blockIdx.x / nkb;
+  b.j0 = kt * kBk;
+  b.n_qt = Sq / kBq;
+  b.it0 = causal ? b.j0 / kBq : 0;         // queries before j0 see no key
+  b.ntiles = b.n_qt - b.it0;
+  b.dqacc = dqacc;
+  b.dk = dkv;
+  b.dv = dvv;
+  b.Sk = Sk;
+  b.d = d;
+  b.causal = causal;
+  b.vec = vec;
+  b.scale = scale;
+  b.scale_log2 = scale_log2;
+  const long long qrow0 = b.bh * Sq;       // rows of the [BH * Sq, d] views
 
-  const bf16* kh = k + bh * Sk * d;
-  const bf16* vh = v + bh * Sk * d;
-  load_rows<DMAX>(qs, q + (bh * Sq + q0) * d, kRows, d, vec);
-  load_rows<DMAX>(dos, dout + (bh * Sq + q0) * d, kRows, d, vec);
-  auto load_kv = [&](int kt, int st) {
-    const long long base = (long long)kt * kKt * d;
-    load_rows<DMAX>(ks + st * TK, kh + base, kKt, d, vec);
-    load_rows<DMAX>(vs + st * TK, vh + base, kKt, d, vec);
-  };
-  float l2[2], dl[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l2[r] = lse[bh * Sq + row0 + 8 * r] * kLog2eF;
-    dl[r] = delta[bh * Sq + row0 + 8 * r];
+  if (threadIdx.x == 0) {
+    mbar_init(b.kv_full, TMA ? 1 : 128);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&b.full[s], TMA ? 1 : 128);
+      mbar_init(&b.empty[s], 128 * C::NWG);
+    }
+    mbar_init_fence();
   }
+  __syncthreads();
+  const int wg = threadIdx.x / 128;
 
-  const int a_off = (16 * warp + (lane & 15)) * DP + ((lane >> 4) << 3);
-  const int b_row = (lane & 7) + ((lane >> 4) << 3);
-  const int b_col = ((lane >> 3) & 1) << 3;
-  const int t_row = (lane & 7) + (((lane >> 3) & 1) << 3);
-  const int t_col = (lane >> 4) << 3;
-
-  float dqa[ND][4];
-#pragma unroll
-  for (int j = 0; j < ND; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dqa[j][e] = 0.f;
-
-  int n_kt = Sk / kKt;
-  if (causal) {
-    const int last = (q0 + kRows + kKt - 1) / kKt;
-    n_kt = last < n_kt ? last : n_kt;
-  }
-  load_kv(0, 0);
-  cp_commit();                              // with Q's and dO's copies
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int st = kt & 1;
-    if (kt + 1 < n_kt) {
-      load_kv(kt + 1, st ^ 1);
-      cp_commit();
-      cp_wait<1>();
-    } else {
-      cp_wait<0>();
-    }
-    __syncthreads();
-    const bf16* kt_s = ks + st * TK;
-    const bf16* vt_s = vs + st * TK;
-
-    // S = Q K^T, dP = dO V^T
-    float s[NS][4], dp[NS][4];
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t qa[4], da[4];
-      ldsm_x4(qa, qs + a_off + 16 * kk);
-      ldsm_x4(da, dos + a_off + 16 * kk);
-#pragma unroll
-      for (int np = 0; np < NS / 2; ++np) {
-        const int off = (16 * np + b_row) * DP + 16 * kk + b_col;
-        uint32_t b[4];
-        ldsm_x4(b, kt_s + off);
-        mma(s[2 * np], qa, b[0], b[1]);
-        mma(s[2 * np + 1], qa, b[2], b[3]);
-        ldsm_x4(b, vt_s + off);
-        mma(dp[2 * np], da, b[0], b[1]);
-        mma(dp[2 * np + 1], da, b[2], b[3]);
-      }
-    }
-    const int k0 = kt * kKt;
-    const bool diag = causal && k0 + kKt - 1 > q0;
-#pragma unroll
-    for (int j = 0; j < NS; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        float p = ex2(fmaf(s[j][e], scale_log2, -l2[r]));
-        if (diag && k0 + 8 * j + 2 * t + (e & 1) > row0 + 8 * r) p = 0.f;
-        dp[j][e] = p * (dp[j][e] - dl[r]);
-      }
-    // dQ += dS K over the tile's keys
-#pragma unroll
-    for (int kk = 0; kk < kKt / 16; ++kk) {
-      uint32_t sa[4];
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int jn = 2 * kk + (r >> 1);
-        const int e0 = (r & 1) * 2;
-        sa[r] = pack(dp[jn][e0], dp[jn][e0 + 1]);
-      }
-#pragma unroll
-      for (int np = 0; np < ND / 2; ++np) {
-        uint32_t b[4];
-        ldsm_x4_trans(b, kt_s + (16 * kk + t_row) * DP + 16 * np + t_col);
-        mma(dqa[2 * np], sa, b[0], b[1]);
-        mma(dqa[2 * np + 1], sa, b[2], b[3]);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int j = 0; j < ND; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int c = 8 * j + 2 * t + (e & 1);
-      if (c < d)
-        dq[(bh * Sq + row0 + 8 * (e >> 1)) * d + c] =
-            __float2bfloat16(dqa[j][e] * scale);
-    }
-}
-
-// rows x DMAX f32 from global (row stride d) into shared (row stride
-// DMAX + 1), columns >= d zero
-template <int DMAX>
-__device__ __forceinline__ void load_rows_f32(float* dst, const float* src,
-                                              int rows, int d) {
-  for (int i = threadIdx.x; i < rows * DMAX; i += blockDim.x) {
-    const int r = i / DMAX;
-    const int c = i % DMAX;
-    dst[r * (DMAX + 1) + c] = c < d ? __ldg(src + (long long)r * d + c) : 0.f;
-  }
-}
-
-// the 4 x 4 dot products of rows 4 ty + a of x and y with rows 4 tx + b
-// of u and w: sxu[a][b] = x . u, syw[a][b] = y . w, over DMAX columns
-template <int DMAX>
-__device__ __forceinline__ void dots4(const float* x, const float* y,
-                                      const float* u, const float* w,
-                                      int ty, int tx, float (&sxu)[4][4],
-                                      float (&syw)[4][4]) {
-  constexpr int DS = DMAX + 1;
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) sxu[a][b] = syw[a][b] = 0.f;
-#pragma unroll 4
-  for (int c = 0; c < DMAX; ++c) {
-    float xa[4], ya[4], ub[4], wb[4];
-#pragma unroll
-    for (int a = 0; a < 4; ++a) {
-      xa[a] = x[(4 * ty + a) * DS + c];
-      ya[a] = y[(4 * ty + a) * DS + c];
-      ub[a] = u[(4 * tx + a) * DS + c];
-      wb[a] = w[(4 * tx + a) * DS + c];
-    }
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        sxu[a][b] = fmaf(xa[a], ub[b], sxu[a][b]);
-        syw[a][b] = fmaf(ya[a], wb[b], syw[a][b]);
-      }
-  }
-}
-
-template <int DMAX>
-__global__ void __launch_bounds__(256)
-dkdv_f32(const float* __restrict__ q, const float* __restrict__ k,
-         const float* __restrict__ v, const float* __restrict__ dout,
-         const float* __restrict__ lse, const float* __restrict__ delta,
-         float* __restrict__ dk, float* __restrict__ dv, int BH, int Sq,
-         int Sk, int d, int causal, float scale) {
-  constexpr int DS = DMAX + 1;
-  constexpr int PS = kF + 1;
-  constexpr int NC = DMAX / 16;      // accumulator columns a thread
-  extern __shared__ float fsm[];
-  float* ks = fsm;
-  float* vs = ks + kF * DS;
-  float* qs = vs + kF * DS;
-  float* dos = qs + kF * DS;
-  float* ps = dos + kF * DS;         // P^T [key][query]
-  float* dss = ps + kF * PS;         // dS^T
-  float* ls = dss + kF * PS;
-  float* dls = ls + kF;
-
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4;
-  const int tx = tid & 15;
-  const int kt = blockIdx.x / BH;
-  const long long bh = blockIdx.x % BH;
-  const int j0 = kt * kF;
-  load_rows_f32<DMAX>(ks, k + (bh * Sk + j0) * d, kF, d);
-  load_rows_f32<DMAX>(vs, v + (bh * Sk + j0) * d, kF, d);
-
-  float dka[4][NC], dva[4][NC];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < NC; ++b) dka[a][b] = dva[a][b] = 0.f;
-
-  for (int it = causal ? j0 / kF : 0; it < Sq / kF; ++it) {
-    const int i0 = it * kF;
-    __syncthreads();                 // every thread is done with the tile
-    load_rows_f32<DMAX>(qs, q + (bh * Sq + i0) * d, kF, d);
-    load_rows_f32<DMAX>(dos, dout + (bh * Sq + i0) * d, kF, d);
-    if (tid < kF) {
-      ls[tid] = lse[bh * Sq + i0 + tid];
-      dls[tid] = delta[bh * Sq + i0 + tid];
-    }
-    __syncthreads();
-    float s[4][4], dp[4][4];         // keys 4 ty + a, queries 4 tx + b
-    dots4<DMAX>(ks, vs, qs, dos, ty, tx, s, dp);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int jj = 4 * ty + a;
-        const int ii = 4 * tx + b;
-        const float p = causal && i0 + ii < j0 + jj
-                            ? 0.f : expf(s[a][b] * scale - ls[ii]);
-        ps[jj * PS + ii] = p;
-        dss[jj * PS + ii] = p * (dp[a][b] - dls[ii]);
-      }
-    __syncthreads();
-    for (int i = 0; i < kF; ++i) {
-      float pj[4], sj[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) {
-        pj[a] = ps[(4 * ty + a) * PS + i];
-        sj[a] = dss[(4 * ty + a) * PS + i];
-      }
-#pragma unroll
-      for (int b = 0; b < NC; ++b) {
-        const float dov = dos[i * DS + tx + 16 * b];
-        const float qv = qs[i * DS + tx + 16 * b];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) {
-          dva[a][b] = fmaf(pj[a], dov, dva[a][b]);
-          dka[a][b] = fmaf(sj[a], qv, dka[a][b]);
+  if (wg == C::NWG) {
+    // ---- producer ------------------------------------------------------------
+    const int ptid = threadIdx.x - 128 * C::NWG;
+    if constexpr (TMA) {
+      if (ptid == 0) {
+        const int krow = (int)(b.bh * Sk + b.j0);
+        mbar_expect(b.kv_full, 2 * C::KV);
+        for (int r = 0; r < C::NR; ++r) {
+          tma_load_2d(sm + C::K_OFF + r * kBk * 128, &tm_k, 64 * r, krow,
+                      b.kv_full);
+          tma_load_2d(sm + C::V_OFF + r * kBk * 128, &tm_v, 64 * r, krow,
+                      b.kv_full);
+        }
+        for (int n = 0; n < b.ntiles; ++n) {
+          const int st = n % STAGES;
+          if (n >= STAGES) mbar_wait(&b.empty[st], ((n / STAGES) - 1) & 1);
+          const int row = (int)(qrow0 + (long long)(b.it0 + n) * kBq);
+          mbar_expect(&b.full[st], 2 * C::QT + 2 * kBq * 4);
+          for (int r = 0; r < C::NR; ++r) {
+            tma_load_2d(sm + C::Q_OFF + st * C::QT + r * kBq * 128, &tm_q,
+                        64 * r, row, &b.full[st]);
+            tma_load_2d(sm + C::DO_OFF + st * C::QT + r * kBq * 128, &tm_do,
+                        64 * r, row, &b.full[st]);
+          }
+          bulk_load(lds + st * 2 * kBq, lse + row, kBq * 4, &b.full[st]);
+          bulk_load(lds + st * 2 * kBq + kBq, delta + row, kBq * 4,
+                    &b.full[st]);
         }
       }
-    }
-  }
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < NC; ++b) {
-      const int c = tx + 16 * b;
-      if (c < d) {
-        const long long at = (bh * Sk + j0 + 4 * ty + a) * d + c;
-        dk[at] = dka[a][b] * scale;
-        dv[at] = dva[a][b];
+    } else {
+      const T* q = static_cast<const T*>(qv);
+      const T* k = static_cast<const T*>(kv);
+      const T* v = static_cast<const T*>(vv);
+      const T* dout = static_cast<const T*>(dov);
+      const long long kbase = (b.bh * Sk + b.j0) * d;
+      fill_tile<DMAX, F32>(sm + C::K_OFF, sm + C::K_OFF + C::KV, k + kbase,
+                           kBk, d, vec, ptid);
+      fill_tile<DMAX, F32>(sm + C::V_OFF, sm + C::V_OFF + C::KV, v + kbase,
+                           kBk, d, vec, ptid);
+      fence_async_shared();
+      mbar_arrive(b.kv_full);
+      for (int n = 0; n < b.ntiles; ++n) {
+        const int st = n % STAGES;
+        if (n >= STAGES) mbar_wait(&b.empty[st], ((n / STAGES) - 1) & 1);
+        const long long row = qrow0 + (long long)(b.it0 + n) * kBq;
+        uint8_t* qs = sm + C::Q_OFF + st * NP * C::QT;
+        uint8_t* dos = sm + C::DO_OFF + st * NP * C::QT;
+        fill_tile<DMAX, F32>(qs, qs + C::QT, q + row * d, kBq, d, vec, ptid);
+        fill_tile<DMAX, F32>(dos, dos + C::QT, dout + row * d, kBq, d, vec,
+                             ptid);
+        if (ptid < kBq) {
+          lds[st * 2 * kBq + ptid] = lse[row + ptid];
+          lds[st * 2 * kBq + kBq + ptid] = delta[row + ptid];
+        }
+        fence_async_shared();
+        mbar_arrive(&b.full[st]);
       }
     }
-}
-
-template <int DMAX>
-__global__ void __launch_bounds__(256)
-dq_f32(const float* __restrict__ q, const float* __restrict__ k,
-       const float* __restrict__ v, const float* __restrict__ dout,
-       const float* __restrict__ lse, const float* __restrict__ delta,
-       float* __restrict__ dq, int BH, int Sq, int Sk, int d, int causal,
-       float scale) {
-  constexpr int DS = DMAX + 1;
-  constexpr int PS = kF + 1;
-  constexpr int NC = DMAX / 16;
-  extern __shared__ float fsm[];
-  float* qs = fsm;
-  float* dos = qs + kF * DS;
-  float* ks = dos + kF * DS;
-  float* vs = ks + kF * DS;
-  float* dss = vs + kF * DS;         // dS [query][key]
-  float* ls = dss + kF * PS;
-  float* dls = ls + kF;
-
-  const int tid = threadIdx.x;
-  const int ty = tid >> 4;
-  const int tx = tid & 15;
-  const int qt = Sq / kF - 1 - (int)(blockIdx.x / BH);
-  const long long bh = blockIdx.x % BH;
-  const int q0 = qt * kF;
-  load_rows_f32<DMAX>(qs, q + (bh * Sq + q0) * d, kF, d);
-  load_rows_f32<DMAX>(dos, dout + (bh * Sq + q0) * d, kF, d);
-  if (tid < kF) {
-    ls[tid] = lse[bh * Sq + q0 + tid];
-    dls[tid] = delta[bh * Sq + q0 + tid];
+    return;
   }
-  float dqa[4][NC];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < NC; ++b) dqa[a][b] = 0.f;
-
-  const int n_kt = causal ? qt + 1 : Sk / kF;
-  for (int kt = 0; kt < n_kt; ++kt) {
-    const int k0 = kt * kF;
-    __syncthreads();
-    load_rows_f32<DMAX>(ks, k + (bh * Sk + k0) * d, kF, d);
-    load_rows_f32<DMAX>(vs, v + (bh * Sk + k0) * d, kF, d);
-    __syncthreads();
-    float s[4][4], dp[4][4];         // queries 4 ty + a, keys 4 tx + b
-    dots4<DMAX>(qs, dos, ks, vs, ty, tx, s, dp);
-#pragma unroll
-    for (int a = 0; a < 4; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int ii = 4 * ty + a;
-        const int jj = 4 * tx + b;
-        const float p = causal && k0 + jj > q0 + ii
-                            ? 0.f : expf(s[a][b] * scale - ls[ii]);
-        dss[ii * PS + jj] = p * (dp[a][b] - dls[ii]);
-      }
-    __syncthreads();
-    for (int j = 0; j < kF; ++j) {
-      float sa[4];
-#pragma unroll
-      for (int a = 0; a < 4; ++a) sa[a] = dss[(4 * ty + a) * PS + j];
-#pragma unroll
-      for (int b = 0; b < NC; ++b) {
-        const float kv = ks[j * DS + tx + 16 * b];
-#pragma unroll
-        for (int a = 0; a < 4; ++a) dqa[a][b] = fmaf(sa[a], kv, dqa[a][b]);
-      }
-    }
+  if constexpr (F32) {
+    consume<DMAX, F32, 0>(b);
+  } else {
+    if (wg == 0)
+      consume<DMAX, F32, 1>(b);
+    else
+      consume<DMAX, F32, 2>(b);
   }
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < NC; ++b) {
-      const int c = tx + 16 * b;
-      if (c < d) dq[(bh * Sq + q0 + 4 * ty + a) * d + c] = dqa[a][b] * scale;
-    }
+  if (threadIdx.x % 128 == 0) bulk_wait();
 }
 
-template <typename K>
-cudaError_t set_smem(K kernel, int bytes) {
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+// dq[bh, q, c] = dqacc * scale, from the accumulator order the main
+// kernel's half-tiles use: for the half h of query tile q / 64, the thread
+// t of the warpgroup wrote its float4 chunk i at (i * 128 + t) * 4.  One
+// warp a row of dq.
+template <typename T, int DMAX>
+__global__ void dq_convert(const float* __restrict__ dqacc, T* __restrict__ dq,
+                           long long rows, int d, float scale) {
+  const long long rowq =
+      (blockIdx.x * (long long)blockDim.x + threadIdx.x) >> 5;   // bh Sq + q
+  const int lane = threadIdx.x & 31;
+  if (rowq >= rows) return;
+  const int r = (int)(rowq % kBq);
+  const int rr = r % 16;
+  const int tw = (r / 16) * 32 + (rr % 8) * 4;   // + (c % 8) / 2
+  const int e = (rr / 8) * 2;                    // + c % 2
+  const float* tile = dqacc + (rowq / kBq) * (kBq * DMAX);
+  for (int c = lane; c < d; c += 32) {
+    const int h = c / (DMAX / 2);
+    const int cc = c % (DMAX / 2);
+    put(dq + rowq * d + c,
+        tile[h * (kBq * DMAX / 2) + ((cc / 8) * 128 + tw + (cc % 8) / 2) * 4 +
+             e + (cc & 1)] * scale);
+  }
 }
 
-template <int DMAX>
-cudaError_t launch_bf16(const void* q, const void* k, const void* v,
-                        const void* dout, const float* lse,
-                        const float* delta, void* dq, void* dk, void* dv,
-                        int BH, int Sq, int Sk, int d, int causal,
-                        float scale, float scale_log2, cudaStream_t s) {
-  constexpr int DP = DMAX + 8;
-  const int vec =
-      d % 8 == 0 && ((uintptr_t)q | (uintptr_t)k | (uintptr_t)v |
-                     (uintptr_t)dout) % 16 == 0;
-  const auto* qb = static_cast<const bf16*>(q);
-  const auto* kb = static_cast<const bf16*>(k);
-  const auto* vb = static_cast<const bf16*>(v);
-  const auto* db = static_cast<const bf16*>(dout);
-  const int smem_kv = (2 * kRows + 4 * kQt) * DP * (int)sizeof(bf16) +
-                      4 * kQt * (int)sizeof(float);
-  cudaError_t err = set_smem(dkdv_bf16<DMAX>, smem_kv);
+// cuTensorMapEncodeTiled from libcuda, which the process has loaded
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
+    if (!h) h = dlopen("libcuda.so.1", RTLD_NOW);
+    if (h) fn = reinterpret_cast<EncodeTiled>(
+        dlsym(h, "cuTensorMapEncodeTiled"));
+  }
+  return fn;
+}
+
+// a [rows, d] bf16 tensor in boxes of 64 columns by box_rows, 128-byte
+// swizzled
+bool bf16_map(EncodeTiled fn, CUtensorMap* m, const void* base,
+              long long rows, int d, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)d * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t unit[2] = {1, 1};
+  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
+
+template <int DMAX, bool F32, bool TMA>
+cudaError_t run(const CUtensorMap (&maps)[4], const void* q, const void* k,
+                const void* v, const void* dout, const float* lse,
+                const float* delta, float* dqacc, void* dk, void* dv, int BH,
+                int Sq, int Sk, int d, int causal, int vec, float scale,
+                float scale_log2, cudaStream_t s) {
+  using C = Cfg<DMAX, F32>;
+  cudaError_t err = cudaFuncSetAttribute(
+      bwd_kernel<DMAX, F32, TMA>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
   if (err != cudaSuccess) return err;
-  dkdv_bf16<DMAX><<<(unsigned)((long long)BH * (Sk / kRows)),
-                    32 * kWarpsB, smem_kv, s>>>(
-      qb, kb, vb, db, lse, delta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), BH, Sq, Sk, d, causal, vec, scale, scale_log2);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int smem_q = (2 * kRows + 4 * kKt) * DP * (int)sizeof(bf16);
-  err = set_smem(dq_bf16<DMAX>, smem_q);
-  if (err != cudaSuccess) return err;
-  dq_bf16<DMAX><<<(unsigned)((long long)BH * (Sq / kRows)), 32 * kWarpsB,
-                  smem_q, s>>>(qb, kb, vb, db, lse, delta,
-                               static_cast<bf16*>(dq), BH, Sq, Sk, d, causal,
-                               vec, scale, scale_log2);
+  bwd_kernel<DMAX, F32, TMA>
+      <<<(unsigned)((long long)BH * (Sk / kBk)), C::THREADS, C::SMEM, s>>>(
+          maps[0], maps[1], maps[2], maps[3], q, k, v, dout, lse, delta,
+          dqacc, dk, dv, Sq, Sk, d, causal, vec, scale, scale_log2);
   return cudaGetLastError();
 }
 
-template <int DMAX>
-cudaError_t launch_f32(const void* q, const void* k, const void* v,
-                       const void* dout, const float* lse,
-                       const float* delta, void* dq, void* dk, void* dv,
-                       int BH, int Sq, int Sk, int d, int causal,
-                       float scale, cudaStream_t s) {
-  constexpr int DS = DMAX + 1;
-  const auto* qf = static_cast<const float*>(q);
-  const auto* kf = static_cast<const float*>(k);
-  const auto* vf = static_cast<const float*>(v);
-  const auto* df = static_cast<const float*>(dout);
-  const int smem_kv =
-      (4 * kF * DS + 2 * kF * (kF + 1) + 2 * kF) * (int)sizeof(float);
-  cudaError_t err = set_smem(dkdv_f32<DMAX>, smem_kv);
+template <int DMAX, bool F32>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* dout, const float* lse, const float* delta,
+                   float* dqacc, void* dq, void* dk, void* dv, int BH, int Sq,
+                   int Sk, int d, int causal, float scale, float scale_log2,
+                   cudaStream_t s) {
+  using T = typename std::conditional<F32, float, bf16>::type;
+  CUtensorMap maps[4];
+  memset(maps, 0, sizeof(maps));
+  const bool al = aligned16(q) && aligned16(k) && aligned16(v) &&
+                  aligned16(dout) && aligned16(dk) && aligned16(dv);
+  const int vec = al && d % (F32 ? 4 : 8) == 0;
+  cudaError_t err;
+  if (!F32 && d == DMAX && al && aligned16(lse)) {
+    const EncodeTiled fn = encoder();
+    if (!fn) return cudaErrorNotSupported;
+    if (!bf16_map(fn, &maps[0], q, (long long)BH * Sq, d, kBq) ||
+        !bf16_map(fn, &maps[1], k, (long long)BH * Sk, d, kBk) ||
+        !bf16_map(fn, &maps[2], v, (long long)BH * Sk, d, kBk) ||
+        !bf16_map(fn, &maps[3], dout, (long long)BH * Sq, d, kBq))
+      return cudaErrorInvalidValue;
+    err = run<DMAX, F32, !F32>(maps, q, k, v, dout, lse, delta, dqacc, dk,
+                               dv, BH, Sq, Sk, d, causal, vec, scale,
+                               scale_log2, s);
+  } else {
+    err = run<DMAX, F32, false>(maps, q, k, v, dout, lse, delta, dqacc, dk,
+                                dv, BH, Sq, Sk, d, causal, vec, scale,
+                                scale_log2, s);
+  }
   if (err != cudaSuccess) return err;
-  dkdv_f32<DMAX><<<(unsigned)((long long)BH * (Sk / kF)), 256, smem_kv,
-                   s>>>(qf, kf, vf, df, lse, delta, static_cast<float*>(dk),
-                        static_cast<float*>(dv), BH, Sq, Sk, d, causal,
-                        scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const int smem_q =
-      (4 * kF * DS + kF * (kF + 1) + 2 * kF) * (int)sizeof(float);
-  err = set_smem(dq_f32<DMAX>, smem_q);
-  if (err != cudaSuccess) return err;
-  dq_f32<DMAX><<<(unsigned)((long long)BH * (Sq / kF)), 256, smem_q, s>>>(
-      qf, kf, vf, df, lse, delta, static_cast<float*>(dq), BH, Sq, Sk, d,
-      causal, scale);
+  const long long rows = (long long)BH * Sq;
+  dq_convert<T, DMAX><<<(unsigned)((rows + 7) / 8), 256, 0, s>>>(
+      dqacc, static_cast<T*>(dq), rows, d, scale);
   return cudaGetLastError();
-}
-
-template <int DMAX>
-cudaError_t dispatch(const void* q, const void* k, const void* v,
-                     const void* dout, const float* lse, const float* delta,
-                     void* dq, void* dk, void* dv, int BH, int Sq, int Sk,
-                     int d, int causal, int is_bf16, float scale,
-                     float scale_log2, cudaStream_t s) {
-  return is_bf16 ? launch_bf16<DMAX>(q, k, v, dout, lse, delta, dq, dk, dv, BH,
-                                   Sq, Sk, d, causal, scale, scale_log2, s)
-               : launch_f32<DMAX>(q, k, v, dout, lse, delta, dq, dk, dv, BH,
-                                  Sq, Sk, d, causal, scale, s);
 }
 
 }  // namespace
@@ -698,43 +792,54 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
 // Gradients of o = flash_attention(q, k, v, causal) for the upstream dO:
 // q, o, dO, dq [BH, Sq, d]; k, v, dk, dv [BH, Sk, d], all float32 (is_bf16 =
 // 0) or bfloat16 (is_bf16 = 1); lse [BH, Sq] float32 from
-// flash_attention_lse; delta [BH, Sq] float32 scratch from the caller.
-// Sq % 128 == 0, Sk % 64 == 0, 1 <= d <= 128, causal only with Sq == Sk.
+// flash_attention_lse.  Scratch from the caller, float32: delta [BH, Sq]
+// and dqacc [BH, Sq, dmax], dmax = 64 if d <= 64 else 128.
+// Sq % 64 == 0, Sk % 64 == 0, 1 <= d <= 128, causal only with Sq == Sk.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, const float* lse,
-                                   float* delta, void* dq, void* dk,
-                                   void* dv, int BH, int Sq, int Sk, int d,
-                                   int causal, int is_bf16, void* stream) {
-  if (d < 1 || d > 128 || Sq % 128 != 0 || Sk % 64 != 0 ||
+                                   float* delta, float* dqacc, void* dq,
+                                   void* dk, void* dv, int BH, int Sq,
+                                   int Sk, int d, int causal, int is_bf16,
+                                   void* stream) {
+  if (d < 1 || d > 128 || Sq % kBq != 0 || Sk % kBk != 0 ||
       (causal && Sq != Sk))
     return (int)cudaErrorInvalidValue;
   if (BH <= 0 || Sq <= 0 || Sk <= 0) return (int)cudaSuccess;
-  const long long blocks = (long long)BH * (Sq > Sk ? Sq : Sk) / 64;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  if ((long long)BH * (Sq > Sk ? Sq : Sk) >= 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int dmax = d <= 64 ? 64 : 128;
   const long long rows = (long long)BH * Sq;
   const unsigned dblocks = (unsigned)((rows + 7) / 8);   // 8 warps a block
+  const int vec = aligned16(o) && aligned16(dout) &&
+                  d % (is_bf16 ? 8 : 4) == 0;
   if (is_bf16)
     delta_kernel<<<dblocks, 256, 0, s>>>(static_cast<const bf16*>(o),
                                          static_cast<const bf16*>(dout),
-                                         delta, rows, d);
+                                         delta, dqacc, rows, d, dmax, vec);
   else
     delta_kernel<<<dblocks, 256, 0, s>>>(static_cast<const float*>(o),
                                          static_cast<const float*>(dout),
-                                         delta, rows, d);
+                                         delta, dqacc, rows, d, dmax, vec);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const float scale = (float)(1.0 / sqrt((double)d));
   const float scale_log2 = (float)(1.0 / sqrt((double)d) * kLog2e);
-  if (d <= 32)
-    err = dispatch<32>(q, k, v, dout, lse, delta, dq, dk, dv, BH, Sq, Sk, d,
-                       causal, is_bf16, scale, scale_log2, s);
-  else if (d <= 64)
-    err = dispatch<64>(q, k, v, dout, lse, delta, dq, dk, dv, BH, Sq, Sk, d,
-                       causal, is_bf16, scale, scale_log2, s);
+  if (is_bf16)
+    err = dmax == 64
+              ? launch<64, false>(q, k, v, dout, lse, delta, dqacc, dq, dk,
+                                  dv, BH, Sq, Sk, d, causal, scale,
+                                  scale_log2, s)
+              : launch<128, false>(q, k, v, dout, lse, delta, dqacc, dq, dk,
+                                   dv, BH, Sq, Sk, d, causal, scale,
+                                   scale_log2, s);
   else
-    err = dispatch<128>(q, k, v, dout, lse, delta, dq, dk, dv, BH, Sq, Sk, d,
-                        causal, is_bf16, scale, scale_log2, s);
+    err = dmax == 64
+              ? launch<64, true>(q, k, v, dout, lse, delta, dqacc, dq, dk, dv,
+                                 BH, Sq, Sk, d, causal, scale, scale_log2, s)
+              : launch<128, true>(q, k, v, dout, lse, delta, dqacc, dq, dk,
+                                  dv, BH, Sq, Sk, d, causal, scale,
+                                  scale_log2, s);
   return (int)err;
 }

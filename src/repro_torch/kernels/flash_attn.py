@@ -18,10 +18,14 @@ Training: with grad mode on and an input that requires grad, the call
 is a ``torch.autograd.Function``.  Its forward is the same kernel writing
 each row's log-sum-exp too (``csrc/flash_attn.cu``,
 ``flash_attention_lse``), and its backward the port's own kernels
-(``csrc/flash_attn_bwd.cu``: D, then dK/dV, then dQ, one counted launch
-``flash_attention_bwd``); the reference's Pallas kernel has no backward.
-On the CPU the two take their plain versions,
-``ref.flash_attention_fwd_ref`` and ``ref.flash_attention_bwd_ref``.
+(``csrc/flash_attn_bwd.cu``, one counted launch ``flash_attention_bwd``:
+D, then one main kernel over blocks of ``BWD_KEY_BLOCK`` keys and
+query tiles of ``BWD_QUERY_TILE``, which sums dK and dV in registers and
+adds each tile's dQ into a float32 accumulator, then dQ cast); the
+reference's Pallas kernel has no backward.  dQ's sum over the key blocks
+is taken by reduce-adds in an order that varies from run to run.  On the
+CPU the two take their plain versions, ``ref.flash_attention_fwd_ref``
+and ``ref.flash_attention_bwd_ref``.
 """
 from __future__ import annotations
 
@@ -31,6 +35,10 @@ from repro_torch.kernels import _build, ref
 
 BLOCK = 128     # the sequence lengths' required multiple
 MAX_HEAD_DIM = 128
+# the backward's tiles (csrc/flash_attn_bwd.cu: kBq queries a tile and
+# kBk keys a block; a test holds them equal)
+BWD_QUERY_TILE = 64
+BWD_KEY_BLOCK = 64
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -118,7 +126,9 @@ def _forward(q, k, v, causal: bool, with_lse: bool):
 def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
     """``(dq, dk, dv)`` of ``o = flash_attention(q, k, v, causal)`` for the
     upstream gradient ``do`` (contiguous, ``o``'s shape and dtype), from
-    the forward's ``o`` and ``lse``.  One counted launch on the card."""
+    the forward's ``o`` and ``lse``.  One counted launch on the card, with
+    float32 scratch: D [B, H, Sq] and the dQ accumulator [B, H, Sq, 64 or
+    128] (d padded), which the kernel zeroes itself."""
     if do.shape != o.shape or do.dtype != o.dtype or not do.is_contiguous():
         raise ValueError(f"do must be contiguous {tuple(o.shape)} {o.dtype}")
     if q.device.type == "cpu":
@@ -127,13 +137,16 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
     Sk = k.shape[2]
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    dq_acc = torch.empty((B, H, Sq, 64 if d <= 64 else 128),
+                         dtype=torch.float32, device=q.device)
     fn = _build.function("flash_attention_bwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
-                dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B * H, Sq, Sk,
-                d, int(causal), int(q.dtype == torch.bfloat16), stream)
+                dq_acc.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), B * H, Sq, Sk, d, int(causal),
+                int(q.dtype == torch.bfloat16), stream)
     _build.check(rc, "flash_attention_bwd")
     _build.count_launch("flash_attention_bwd")
     return dq, dk, dv

@@ -20,6 +20,7 @@ import torch
 from repro.kernels import ref as rref
 from repro_torch.kernels import _build, cin, ref
 from test_torch_graph import _one_torch_thread  # noqa: F401
+from test_torch_split_precision import _constexprs
 
 TOL = dict(rtol=3e-4, atol=3e-4)
 SHAPES = [(4, 3, 2, 5, 6), (9, 39, 39, 10, 16), (3, 200, 39, 10, 200),
@@ -107,12 +108,17 @@ def test_first_layer_sums_both_input_gradients():
     (65536, 200, 39, 10, 200), (512, 200, 39, 10, 200),
     (512, 39, 39, 10, 200), (1, 7, 5, 3, 65), (100, 400, 7, 4, 5)])
 def test_wgrad_plan_covers_the_reduction(B, H, M, D, K):
+    """The parts cover the ceil(B * D / WG_COLS) column stages, none empty,
+    and the grid (blocks of WG_ROWS values of j by WG_KROWS rows k, S
+    parts each) stays within about four waves of the card."""
     S, cps, part = cin.wgrad_plan(B, H, M, D, K)
-    chunks = math.ceil(B / cin.WG_SAMPLES)
-    assert (S - 1) * cps < chunks <= S * cps
+    stages = math.ceil(B * D / cin.WG_COLS)
+    assert (S - 1) * cps < stages <= S * cps
     assert part == ((S, K, H * M) if S > 1 else None)
-    tiles = math.ceil(H * M / cin.WG_ROWS) * math.ceil(K / cin.ROWS)
+    tiles = math.ceil(H * M / cin.WG_ROWS) * math.ceil(K / cin.WG_KROWS)
     assert S <= max(1, math.ceil(4 * cin.SMS / tiles))
+    if tiles >= cin.SMS:
+        assert S == 1
 
 
 def test_wgrad_checks_arguments():
@@ -127,7 +133,16 @@ def test_wgrad_checks_arguments():
 
 
 def test_tile_constants_match_the_cuda_source():
-    src = (_build.CSRC / "cin.cu").read_text()
-    assert f"kGJt = 16 * kGWarps;         // {cin.WG_ROWS}" in src
-    assert f"constexpr int kGBc = {cin.WG_SAMPLES};" in src
-    assert "constexpr int kGWarps = 8;" in src
+    """The wrapper's tiles and flush interval F are the kernel's: j a block
+    (the wgmma's M), rows k a block (two consumer warpgroups of N rows),
+    columns a stage (four tf32 k-steps of 8), and F k-steps between two
+    Kahan flushes; the stage ring fits the shared memory."""
+    c = _constexprs((_build.CSRC / "cin.cu").read_text())
+    assert c["kGJt"] == cin.WG_ROWS == 64
+    assert c["kGKt"] == 2 * c["kGN"] == cin.WG_KROWS
+    assert c["kGCols"] == cin.WG_COLS and cin.WG_COLS % 8 == 0
+    assert c["kGFlush"] * c["kGCols"] // 8 == cin.WG_FLUSH
+    assert c["kGStage"] == 2 * (c["kGJt"] + c["kGKt"]) * 4 * c["kGCols"]
+    assert c["kGSmem"] <= c["kMaxSmem"]
+    assert 2 * c["kGG"] // 4 == cin.WG_PREP
+    assert cin.wgrad_prep_floats(65536, 10, 200) * 4 == 20480 * 2 * c["kGG"]

@@ -17,6 +17,15 @@ the card's tolerances against float64:
   and p with three products each, float32 scores and online-softmax state
   over key tiles of 64, within the card's float32 tolerance (2e-3) of
   float64 attention.
+- ``csrc/cin.cu``'s ``cin_weight_grad``: 3xTF32 products of Z = x_k x_0
+  and g over k-steps of 8 columns, taken in a float32 accumulator that is
+  flushed into a Kahan pair every F k-steps, the S parts added in float64,
+  within 3e-4 of the largest magnitude of float64 at the full reduction
+  length of B = 65,536 samples.
+- ``csrc/flash_attn_bwd.cu`` in float32: bf16 hi/lo splits of every
+  product's operands (q, k, v, dO, and P and dS), dK and dV summed in
+  float32 over query tiles of 64, dQ over key blocks of 64, within the
+  card's 2e-3 of float64 gradients.
 
 The tensor cores' own accumulation is modelled as one float32 rounding
 of each 8-term product sum; the card may truncate where this rounds, and
@@ -245,6 +254,148 @@ def test_cin_wrapper_constants_match_the_kernel():
     def smem(m):                    # x_0, two stages of 2 x_k rows, W, j table
         return (m + 4) * c["kXs"] * 4 + 2 * c["kWTile"] * 4 + 2 * c["kJc"] * 8
     assert smem(cin.MAX_FIELDS) <= c["kMaxSmem"] < smem(cin.MAX_FIELDS + 1)
+
+
+def cin_wgrad_emulated(g, xk, x0, splits=1, cols=cin.WG_COLS,
+                       flush=cin.WG_FLUSH):
+    """``cin_weight_grad``'s arithmetic on float32 g [B, K, D], x_k [B, H,
+    D], x_0 [B, M, D] -> float64 dw [K, H * M].  Each k-step of 8 columns
+    adds its three TF32 products (lo.hi, hi.lo, hi.hi) into the float32
+    accumulator, rounding after each; every ``flush`` k-steps (and at the
+    end of a part) the accumulator goes into the Kahan pair and keeps the
+    compensation; the parts (of ceil(stages / splits) stages of ``cols``)
+    are added in float64."""
+    B, K, D = g.shape
+    H, M = xk.shape[1], x0.shape[1]
+    z = (xk[:, :, None, :] * x0[:, None, :, :]).reshape(B, H * M, D)
+    z = z.permute(0, 2, 1).reshape(B * D, H * M)       # [c, j]
+    gc = g.permute(0, 2, 1).reshape(B * D, K)          # [c, k]
+    pad = -(B * D) % cols
+    z = torch.cat([z, torch.zeros(pad, H * M)])
+    gc = torch.cat([gc, torch.zeros(pad, K)])
+    steps = z.shape[0] // 8
+
+    def prod(a, b):                    # [steps, K * H * M] float64
+        return torch.einsum("sck,scj->skj", a.double().reshape(steps, 8, -1),
+                            b.double().reshape(steps, 8, -1)
+                            ).reshape(steps, -1).numpy()
+    zh, zl = split(z, tf32)
+    gh, gl = split(gc, tf32)
+    terms = (prod(gh, zl), prod(gl, zh), prod(gh, zh))
+    per_stage = cols // 8
+    n_stages = steps // per_stage
+    cps = math.ceil(n_stages / splits)
+    total = np.zeros(K * H * M)
+    f32 = np.float32
+    for s in range(splits):
+        lo, hi = s * cps * per_stage, min((s + 1) * cps, n_stages) * per_stage
+        tot = np.zeros(K * H * M, f32)
+        acc = np.zeros_like(tot)
+        for i in range(lo, hi):
+            for t in terms:
+                acc = (acc + t[i]).astype(f32)
+            if (i - lo + 1) % flush == 0 or i == hi - 1:
+                u = (tot + acc).astype(f32)
+                acc = (acc - (u - tot).astype(f32)).astype(f32)
+                tot = u
+        total += tot.astype(np.float64) + acc.astype(np.float64)
+    return total.reshape(K, H * M)
+
+
+@pytest.mark.parametrize("plan_splits", [False, True])
+def test_cin_wgrad_emulation_holds_the_card_tolerance(plan_splits):
+    """At the full reduction length (B = 65,536, D = 10: 81,920 k-steps,
+    2,560 Kahan flushes in one part) and narrow outputs, the emulated
+    kernel stays within chip_smoke's 3e-4 of the largest magnitude of
+    float64, in one part (FULL's H = 200 case, whose 122 blocks fill the
+    card) and in the parts ``wgrad_plan`` takes at this shape."""
+    B, H, M, D, K = 65536, 4, 3, 10, 8
+    rng = np.random.default_rng(11)
+    g, xk, x0 = (rng.normal(size=s).astype(np.float32)
+                 for s in ((B, K, D), (B, H, D), (B, M, D)))
+    splits = cin.wgrad_plan(B, H, M, D, K)[0] if plan_splits else 1
+    got = cin_wgrad_emulated(*map(torch.from_numpy, (g, xk, x0)), splits)
+    exact = np.einsum("bkd,bhd,bmd->khm", g.astype(np.float64),
+                      xk.astype(np.float64),
+                      x0.astype(np.float64)).reshape(K, H * M)
+    err = np.abs(got - exact).max()
+    assert err <= 3e-4 * np.abs(exact).max(), (err, np.abs(exact).max())
+
+
+def flash_bwd_f32_emulated(q, k, v, do, causal, q_tile=64, k_block=64):
+    """The f32 backward's arithmetic on [BH, S, d] float32 tensors: every
+    product as lo.hi + hi.lo + hi.hi of bf16 splits with one float32
+    rounding, P and dS in float32 from the forward's float32 lse and o,
+    dK and dV summed in float32 over query tiles, dQ over key blocks."""
+    BH, S, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    scale_log2 = float(np.float32(scale * math.log2(math.e)))
+    logits = torch.einsum("bqd,bkd->bqk", q.double(), k.double()) * scale
+    keep = torch.ones(S, S, dtype=torch.bool)
+    if causal:
+        keep = torch.tril(keep)
+    logits = torch.where(keep, logits, -math.inf)
+    lse = torch.logsumexp(logits, -1)
+    o = torch.einsum("bqk,bkd->bqd", torch.exp(logits - lse[..., None]),
+                     v.double()).float()
+    lse = lse.float()
+
+    def prod(a, b, eq):
+        (ah, al), (bh, bl) = split(a, bf16), split(b, bf16)
+        return (torch.einsum(eq, al.double(), bh.double())
+                + torch.einsum(eq, ah.double(), bl.double())
+                + torch.einsum(eq, ah.double(), bh.double())).float()
+    s = prod(q, k, "bqd,bkd->bqk")
+    p = torch.exp2(s * scale_log2 - lse[..., None] * float(np.float32(
+        math.log2(math.e))))
+    p = torch.where(keep, p, 0.0)
+    dp = prod(do, v, "bqd,bkd->bqk")
+    ds = p * (dp - (do * o).sum(-1)[..., None])
+    dv = torch.zeros_like(v)
+    dk = torch.zeros_like(k)
+    for i0 in range(0, S, q_tile):
+        rows = slice(i0, i0 + q_tile)
+        dv += prod(p[:, rows].transpose(1, 2), do[:, rows], "bkq,bqd->bkd")
+        dk += prod(ds[:, rows].transpose(1, 2), q[:, rows], "bkq,bqd->bkd")
+    dq = torch.zeros_like(q)
+    for k0 in range(0, S, k_block):
+        cols = slice(k0, k0 + k_block)
+        dq += prod(ds[:, :, cols], k[:, cols], "bqk,bkd->bqd")
+    return dq * scale, dk * scale, dv
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_bwd_f32_split_bf16_emulation_holds_the_card_tolerance(causal):
+    """f32 attention's gradients at S = 512, d = 128 on 2 heads: the
+    emulated kernel within the card's 2e-3 of float64 gradients."""
+    rng = np.random.default_rng(12)
+    q, k, v, do = (torch.from_numpy(rng.normal(size=(2, 512, 128)).astype(
+        np.float32)) for _ in range(4))
+    got = flash_bwd_f32_emulated(q, k, v, do, causal)
+    leaves = [t.double().requires_grad_() for t in (q, k, v)]
+    logits = torch.einsum("bqd,bkd->bqk", leaves[0], leaves[1]) / math.sqrt(
+        128)
+    if causal:
+        logits = logits.masked_fill(
+            ~torch.tril(torch.ones(512, 512, dtype=torch.bool)), -math.inf)
+    out = torch.einsum("bqk,bkd->bqd", torch.softmax(logits, -1), leaves[2])
+    exact = torch.autograd.grad(out, leaves, do.double())
+    for a, b in zip(got, exact):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=2e-3,
+                                   atol=2e-3)
+
+
+def test_flash_bwd_wrapper_constants_match_the_kernel():
+    """The backward's query tile and key block are the wrapper's, the
+    sequence lengths' BLOCK covers them, and chip_smoke's planted fault
+    drops that query tile."""
+    c = _constexprs((CSRC / "flash_attn_bwd.cu").read_text())
+    assert c["kBq"] == flash_attn.BWD_QUERY_TILE == 64
+    assert c["kBk"] == flash_attn.BWD_KEY_BLOCK
+    assert flash_attn.BLOCK % flash_attn.BWD_KEY_BLOCK == 0
+    smoke = (CSRC.parents[3] / "chip_smoke.py").read_text()
+    assert re.search(r"^BWD_QUERY_TILE = (\d+)", smoke, re.M).group(1) == \
+        str(flash_attn.BWD_QUERY_TILE)
 
 
 def test_flash_wrapper_block_covers_the_kernel_tiles():
