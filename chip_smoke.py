@@ -128,6 +128,21 @@ Phases, each failing the run (non-zero exit) if it fails:
     steps (the loss falls); the five LM smoke configs in f32, loss and
     gradients card against CPU (2e-3); the ``train`` launcher, and its
     xDeepFM run resumed from its checkpoints.
+10. ``[gnn]``, the GNN family through ``Trainer`` (AdamW, seed 0) at full
+    width: gat-cora FULL on ``cora_like(2708, 10556, 1433)``, 5 steps;
+    pna at ``cfg_for("minibatch_lg")`` on one ``sample_subgraph`` (1,024
+    seeds, fanout 15-10) of ``gnp(2^20, avg_deg=25)``, padded to 169,984
+    nodes and 168,960 edges, 5 steps; dimenet and nequip FULL on 128
+    molecules of 30 atoms and 64 directed edges through
+    ``build_triplets``, 3 steps each: every loss finite, no kernel
+    launched, step ms, nodes/s or molecules/s and peak GiB against
+    ``gnn_work``'s bound (the reference's FLOP formulas, 3 x the forward,
+    at 67 TFLOP/s f32); each arch's loss and gradients card against the
+    port's CPU run from the same weights (2e-3 of each leaf's largest);
+    the distance-feature example ``sssp_gnn_features_torch.main(
+    ["--ci"])``, then its fleets (``--ci`` and default) through the
+    frontier route, ``dist`` bitwise the segment route's, B2 launched;
+    the ``train`` launcher's gat-cora run.
 
 Each phase prints its wall time.
 
@@ -3974,6 +3989,336 @@ def train_phase(torch):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# phase 10: GNNs
+# ---------------------------------------------------------------------------
+
+GNN_STEPS = {"gat-cora": 5, "pna": 5, "dimenet": 3, "nequip": 3}
+# pna's graph: gnp at ogb_products' mean in-degree (61,859,140 edges /
+# 2,449,029 nodes = 25.3), 2^20 vertices; one default SamplerSpec draw
+# (1,024 seeds, fanout 15-10) padded to the minibatch_lg cell
+PNA_GRAPH = dict(n=1 << 20, avg_deg=25)
+# the molecule cell: 128 molecules of 30 atoms, each atom uniform in a
+# 6 A box, the 32 closest pairs of a molecule as 64 directed edges
+# (3,840 atoms, 8,192 edges; all within the 5 A cutoff)
+MOLECULES = dict(n_mol=128, n_atom=30, pairs=32, box=6.0)
+GNN_TOL = 2e-3                # card vs CPU, [train]'s rule
+
+
+def gnn_work(arch: str, cfg, n_edges: int) -> float:
+    """Operations of one training step (3 x the forward) of a GNN over
+    ``n_edges`` edges, by the reference's FLOP formulas (its
+    ``build_cell``'s ``flops_per_edge``, kept in each config's
+    ``cell_flops``)."""
+    import importlib
+    mod = importlib.import_module(
+        f"repro_torch.configs.{arch.replace('-', '_')}")
+    return 3.0 * mod.cell_flops(cfg, n_edges)
+
+
+def gnn_cora(dev):
+    """``cora_like`` at the full_graph_sm cell (2,708 nodes, 10,556 edges,
+    1,433 features), the reference's Cora stand-in."""
+    from repro_torch.configs.cells import GNN_SHAPES
+    from repro_torch.data.synthetic import cora_like
+    from repro_torch.models.gnn.layers import build_batch
+    info = GNN_SHAPES["full_graph_sm"]
+    n, src, dst, x, y = cora_like(info["n"], info["e"], info["d_feat"])
+    return build_batch(n, src, dst, x, y, device=dev), len(src)
+
+
+def gnn_minibatch(dev):
+    """One ``sample_subgraph`` of the default ``SamplerSpec`` from the
+    port's ``gnp(PNA_GRAPH)``, seeded features of width 602 and labels of
+    47 classes for the sampled nodes, padded to the minibatch_lg cell."""
+    from repro_torch.configs.cells import GNN_SHAPES
+    from repro_torch.core import generators
+    from repro_torch.models.gnn.layers import build_batch
+    from repro_torch.models.gnn.sampler import (CSRGraph, SamplerSpec,
+                                                sample_subgraph)
+    info = GNN_SHAPES["minibatch_lg"]
+    t0 = time.perf_counter()
+    n, src, dst, _ = generators.gnp(PNA_GRAPH["n"],
+                                    avg_deg=PNA_GRAPH["avg_deg"], seed=0)
+    t1 = time.perf_counter()
+    g = CSRGraph(n, src, dst)
+    spec = SamplerSpec()
+    rng = np.random.default_rng(0)
+    seeds = rng.choice(n, spec.batch_nodes, replace=False)
+    t2 = time.perf_counter()
+    _, s, d, nn, ne = sample_subgraph(g, seeds, spec, rng)
+    t3 = time.perf_counter()
+    x = rng.standard_normal((nn, info["d_feat"]), dtype=np.float32)
+    y = rng.integers(0, 47, nn)
+    batch = build_batch(nn, s[:ne], d[:ne], x, y,
+                        e_pad_multiple=spec.max_edges,
+                        n_pad_multiple=spec.max_nodes, device=dev)
+    check(batch.n_nodes == info["n"] and batch.src.shape[0] == info["e"],
+          f"[gnn] the sampled batch is {batch.n_nodes} x "
+          f"{batch.src.shape[0]}, not minibatch_lg's")
+    log(f"  pna data: gnp({n:,}, avg_deg {PNA_GRAPH['avg_deg']}) "
+        f"{len(src):,} edges in {t1 - t0:.1f} s, CSRGraph "
+        f"{t2 - t1:.1f} s, sample_subgraph {t3 - t2:.2f} s: {nn:,} nodes, "
+        f"{ne:,} edges, padded to {batch.n_nodes:,} x "
+        f"{batch.src.shape[0]:,}")
+    return batch, info["e"]
+
+
+def gnn_molecules(dev):
+    """``MOLECULES`` through ``build_triplets`` (seeded positions,
+    species of the 16 kinds, energies)."""
+    from repro_torch.models.gnn.dimenet import build_triplets
+    m = MOLECULES
+    rng = np.random.default_rng(0)
+    iu = np.triu_indices(m["n_atom"], 1)
+    src, dst, pos, longest = [], [], [], 0.0
+    for g in range(m["n_mol"]):
+        p = rng.uniform(0, m["box"], (m["n_atom"], 3))
+        dd = np.linalg.norm(p[:, None] - p[None, :], axis=-1)[iu]
+        near = np.argsort(dd, kind="stable")[: m["pairs"]]
+        i, j = iu[0][near] + g * m["n_atom"], iu[1][near] + g * m["n_atom"]
+        src += [i, j]
+        dst += [j, i]
+        pos.append(p)
+        longest = max(longest, float(dd[near].max()))
+    n = m["n_mol"] * m["n_atom"]
+    species = rng.integers(0, 16, n)
+    y = rng.normal(size=m["n_mol"]).astype(np.float32)
+    gid = np.repeat(np.arange(m["n_mol"]), m["n_atom"])
+    t0 = time.perf_counter()
+    b = build_triplets(n, np.concatenate(src), np.concatenate(dst),
+                       np.concatenate(pos), species, y, n_graphs=m["n_mol"],
+                       graph_id=gid, device=dev)
+    check(longest < 5.0, f"[gnn] a molecule edge of {longest:.2f} A passes "
+                         "the 5 A cutoff")
+    log(f"  molecules: {m['n_mol']} x {m['n_atom']} atoms, {b.n_edges:,} "
+        f"edges (longest {longest:.2f} A), {int(b.t_mask.sum()):,} "
+        f"triplets (padded to {b.t_ji.shape[0]:,}) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return b, b.n_edges
+
+
+def gnn_archs():
+    """(arch, config, model module, data builder, readout unit) of the
+    ``[gnn]`` runs."""
+    from repro_torch.configs import dimenet, gat_cora, nequip, pna
+    from repro_torch.models.gnn import dimenet as dn
+    from repro_torch.models.gnn import gat
+    from repro_torch.models.gnn import nequip as nq
+    from repro_torch.models.gnn import pna as pn
+    return [("gat-cora", gat_cora.FULL, gat, gnn_cora, "nodes"),
+            ("pna", pna.cfg_for("minibatch_lg"), pn, gnn_minibatch, "nodes"),
+            ("dimenet", dimenet.FULL, dn, gnn_molecules, "molecules"),
+            ("nequip", nequip.FULL, nq, gnn_molecules, "molecules")]
+
+
+def gnn_train_full(torch, arch, cfg, mod, batch, n_edges, unit):
+    """``Trainer`` (AdamW, seed 0) on one arch at full width: every step's
+    loss finite and launch-counted (the GNNs launch no kernel of the
+    port: their aggregations are scatter ops, as the reference's are
+    outside any Pallas kernel); step ms, nodes/s or molecules/s and peak
+    GiB against ``gnn_work``'s bound.  Returns the steps' counts."""
+    from repro_torch.runtime.train_loop import TrainConfig, Trainer
+    dev = torch.device(DEVICE)
+    steps = GNN_STEPS[arch]
+    params = mod.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2 ** 30
+    trainer = Trainer(lambda p, b: mod.loss_fn(p, batch, cfg), params,
+                      TrainConfig(peak_lr=1e-3, warmup=1, total_steps=steps),
+                      lambda: {"_": np.zeros(1)}, name=arch)
+    per_step = counting_steps(torch, trainer)
+    hist = trainer.run(steps, log_every=1,
+                       print_fn=lambda line: log("    " + line))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    check(all(np.isfinite(h["loss"]) and np.isfinite(h["grad_norm"])
+              for h in hist), f"[gnn] {arch}: non-finite loss {hist}")
+    check(all(not nonzero(lc) for lc in per_step),
+          f"[gnn] {arch}: launches {per_step}")
+    times = [h["step_time_s"] for h in hist]
+    warm = statistics.median(times[1:])
+    units = (int(batch.node_mask.sum()) if unit == "nodes"
+             else batch.n_graphs)
+    ops = gnn_work(arch, cfg, n_edges)
+    b_ms = ops / FP32_OPS_PER_S * 1e3
+    log(f"  {arch} {cfg}: {steps} AdamW steps, loss {hist[0]['loss']:.4f} "
+        f"-> {hist[-1]['loss']:.4f}; step {times[0] * 1e3:.1f} ms first, "
+        f"{warm * 1e3:.2f} ms median of the rest (host clock) = "
+        f"{units / warm:,.0f} {unit}/s; bound {b_ms:.4f} ms ({ops / 1e9:.3f} "
+        f"GFLOP, 3 x the reference's forward formula over {n_edges:,} "
+        f"edges, at 67 TFLOP/s f32): {warm * 1e3 / b_ms:,.1f} x the bound; "
+        f"peak {peak:.3f} GiB, {peak - held:.3f} above the {held:.3f} held "
+        f"before the run (the weights, the batch, earlier phases)")
+    del trainer, params
+    torch.cuda.empty_cache()
+    return per_step
+
+
+def gnn_grads(torch, mod, cfg, params, batch):
+    """Loss and every gradient leaf (zeros where the loss does not reach
+    a leaf) of ``mod.loss_fn``."""
+    from repro_torch.checkpoint.store import tree_leaves
+    leaves = tree_leaves(params)
+    for t in leaves:
+        t.requires_grad_(True)
+    loss, _ = mod.loss_fn(params, batch, cfg)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return loss.detach(), [torch.zeros_like(t) if g is None else g.detach()
+                           for g, t in zip(grads, leaves)]
+
+
+def gnn_f64(torch, batch):
+    """``batch`` with its floating tensors in float64."""
+    import dataclasses
+    return dataclasses.replace(batch, **{
+        f.name: getattr(batch, f.name).double()
+        for f in dataclasses.fields(batch)
+        if isinstance(getattr(batch, f.name), torch.Tensor)
+        and getattr(batch, f.name).is_floating_point()})
+
+
+def gnn_parity(torch, arch, cfg, mod, batch_cpu):
+    """Loss and gradients of one step at full width, card against the
+    port's CPU run from the same weights (generator seed 1 on the CPU):
+    each leaf within ``GNN_TOL`` of its largest gradient (the card's
+    scatter-adds are atomic, so their order varies: no bitwise claim).
+    Where a leaf misses that, a float64 run of the step on the card is
+    the arbiter: the leaf passes only if float32 itself cannot hold the
+    rule there (the CPU's leaf is more than ``GNN_TOL / 2`` of its
+    largest away from float64) and the card's leaf is at most twice as
+    far from float64 as the CPU's."""
+    from repro_torch.checkpoint.store import map_leaves
+    dev = torch.device(DEVICE)
+    params = mod.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+    card = map_leaves(lambda t: t.to(dev), params)
+    t0 = time.perf_counter()
+    want_loss, want = gnn_grads(torch, mod, cfg, params, batch_cpu)
+    t1 = time.perf_counter()
+    (got_loss, got), lc = counted(torch, lambda: gnn_grads(
+        torch, mod, cfg, card, batch_cpu.to(dev)))
+    ok = bool(torch.allclose(got_loss.cpu(), want_loss, rtol=GNN_TOL,
+                             atol=0.0))
+    worst, bad = 0.0, []
+    for i, (a, b) in enumerate(zip(got, want, strict=True)):
+        scale = float(b.abs().max())
+        worst = max(worst, float((a.cpu() - b).abs().max())
+                    / max(scale, 1e-30))
+        if not torch.allclose(a.cpu(), b, rtol=GNN_TOL,
+                              atol=GNN_TOL * scale):
+            bad.append(i)
+    log(f"  {arch} card vs CPU (CPU step {t1 - t0:.2f} s): loss "
+        f"{float(got_loss):.6f} vs {float(want_loss):.6f}; {len(got)} "
+        f"gradient leaves, worst max |err| / max |grad| {worst:.3e} (rtol "
+        f"{GNN_TOL:g}, atol {GNN_TOL:g} x max); leaves past it: {bad}")
+    if bad:
+        p64 = map_leaves(lambda t: t.detach().to(dev, torch.float64),
+                         params)
+        _, exact = gnn_grads(torch, mod, cfg, p64,
+                             gnn_f64(torch, batch_cpu.to(dev)))
+        for i in bad:
+            ref = exact[i].cpu()
+            scale = max(float(ref.abs().max()), 1e-300)
+            e_cpu = float((want[i].double() - ref).abs().max()) / scale
+            e_card = float((got[i].cpu().double() - ref).abs().max()) / scale
+            leaf_ok = e_cpu > GNN_TOL / 2 and e_card <= 2 * e_cpu
+            log(f"    leaf {i} {tuple(ref.shape)}: max |err| / max |grad| "
+                f"against float64 on the card: CPU float32 {e_cpu:.3e}, "
+                f"card float32 {e_card:.3e} "
+                f"({'ok' if leaf_ok else 'FAILED'})")
+            ok &= leaf_ok
+    check(ok and not nonzero(lc), f"[gnn] {arch}: the card's loss or "
+                                  f"gradients differ from the CPU's")
+
+
+def gnn_example():
+    """``examples/sssp_gnn_features_torch.py`` as a module."""
+    import importlib.util
+    path = ROOT / "examples" / "sssp_gnn_features_torch.py"
+    spec = importlib.util.spec_from_file_location("sssp_gnn_features_torch",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def gnn_feature_path(torch):
+    """The distance-feature example on the card (``main(["--ci"])``), then
+    its fleets (``--ci`` and the default) solved through the frontier
+    route: ``dist`` bitwise the segment route's, B2 launched.  Returns
+    the counted runs' launch counts."""
+    import contextlib
+    import io
+    ex = gnn_example()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc, lc = counted(torch, lambda: ex.main(["--ci"]))
+    lines = out.getvalue().strip().splitlines()
+    log(f"  sssp_gnn_features_torch --ci: rc {rc}; {lines[0]!r} .. "
+        f"{lines[-1]!r}; launches {nonzero(lc)}")
+    check(rc == 0 and f"on {DEVICE}" in lines[0],
+          f"[gnn] the feature example failed on the card: {lines}")
+    runs = [lc]
+    for ci in (True, False):
+        _, _, _, seg = ex.fleet_distances(ci, DEVICE)
+        (_, fs, _, fr), lc = counted(
+            torch, lambda: ex.fleet_distances(ci, DEVICE, backend="frontier"))
+        ok = (torch.equal(fr.dist.cpu(), seg.dist.cpu())
+              and np.array_equal(fr.rounds, seg.rounds))
+        F, L, n = fr.dist.shape
+        log(f"  feature fleet {'--ci' if ci else 'default'} ({F} x {L} "
+            f"lanes, n {n}): frontier dist bitwise the segment route's: "
+            f"{ok}; rounds {fr.rounds.max()}; launches {nonzero(lc)}")
+        check(ok and fs.backend == "frontier"
+              and lc["frontier_relax_csr"] > 0,
+              f"[gnn] the frontier feature fleet: bitwise {ok}, launches "
+              f"{nonzero(lc)}")
+        runs.append(lc)
+    return runs
+
+
+def gnn_launcher(torch):
+    """``launch/train.main`` with ``--arch gat-cora`` on the card (its
+    default device).  Returns the run's launch counts."""
+    import contextlib
+    import io
+    from repro_torch.launch import train
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc, lc = counted(torch, lambda: train.main(
+            ["--arch", "gat-cora", "--steps", "3"]))
+    text = out.getvalue()
+    log(f"  train --arch gat-cora --steps 3: rc {rc}, "
+        f"{text.strip().splitlines()[-1]!r}; launches {nonzero(lc)}")
+    check(rc == 0 and f"done on {DEVICE}" in text,
+          f"[gnn] the train launcher's gat-cora run failed: {text!r}")
+    return lc
+
+
+def gnn_phase(torch):
+    """The four GNN archs at full width on the card through ``Trainer``
+    (``gnn_train_full``), each held against the port's CPU run
+    (``gnn_parity``); the distance-feature path with its frontier fleet;
+    the launcher's gat-cora run.  Returns the counted runs' launch
+    counts."""
+    dev = torch.device(DEVICE)
+    runs = []
+    data = {}
+    for arch, cfg, mod, build, unit in gnn_archs():
+        if build not in data:
+            data[build] = build("cpu")
+        batch_cpu, n_edges = data[build]
+        runs += gnn_train_full(torch, arch, cfg, mod, batch_cpu.to(dev),
+                               n_edges, unit)
+        gnn_parity(torch, arch, cfg, mod, batch_cpu)
+    del data
+    runs += gnn_feature_path(torch)
+    runs.append(gnn_launcher(torch))
+    torch.cuda.empty_cache()
+    return runs
+
+
 KERNELS = {
     "frontier_relax": (
         "src/repro_torch/kernels/csrc/frontier_relax.cu",
@@ -4097,6 +4442,9 @@ def main() -> int:
                        "at full width, xDeepFM FULL, smoke configs against "
                        "the CPU, the train launcher",
                        lambda: train_phase(torch))
+    runs_gnn = phase("gnn", "GNNs: gat-cora, pna, dimenet and nequip at "
+                     "full width, card against the CPU, the distance-feature "
+                     "path, the train launcher", lambda: gnn_phase(torch))
     if args.profile:
         log("[profile] torch.profiler over the first rounds of each route")
         profile_phase(torch, pt)
@@ -4106,7 +4454,7 @@ def main() -> int:
     for lc in (launch_runs + runs_dyn + runs_p2p + runs_bidi + runs_fleet
                + runs_serve + runs_launch + runs_base + runs_dist
                + runs_legacy + [xd_launch, attn_launch] + runs_lm
-               + runs_train):
+               + runs_train + runs_gnn):
         for k, v in lc.items():
             main_launch[k] += v
     kernels = []

@@ -1,7 +1,9 @@
 """Model configurations of the port (``repro/configs``).
 
-The five LM architectures (kind ``"lm"``) and xDeepFM (``xdeepfm``,
-kind ``"recsys"``) register here: ``get_arch(name)`` / ``list_archs()``
+The five LM architectures (kind ``"lm"``), xDeepFM (``xdeepfm``, kind
+``"recsys"``) and the four GNNs (``gat-cora``, ``pna``, ``dimenet``,
+``nequip``, kind ``"gnn"``; their shape table in ``cells``) register
+here: ``get_arch(name)`` / ``list_archs()``
 resolve an ``--arch`` id to its ``ArchSpec`` (full and smoke configs,
 the reference's dry-run shape names).  The reference's ``build_cell``
 (an XLA lowering of a dry-run cell) has no counterpart.
@@ -14,7 +16,7 @@ import dataclasses
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     name: str
-    kind: str                       # lm | recsys
+    kind: str                       # lm | recsys | gnn
     full: object                    # full-size model config
     smoke: object                   # reduced config for CPU smoke tests
     shapes: tuple[str, ...]         # the reference's dry-run cell names
@@ -51,5 +53,6 @@ def lm_shapes_for(cfg) -> tuple[str, ...]:
 def _ensure_loaded() -> None:
     # every module, whatever a caller imported first
     from repro_torch.configs import (  # noqa: F401
-        command_r_35b, command_r_plus_104b, deepseek_moe_16b,
-        llama4_maverick_400b_a17b, qwen3_32b, xdeepfm)
+        command_r_35b, command_r_plus_104b, deepseek_moe_16b, dimenet,
+        gat_cora, llama4_maverick_400b_a17b, nequip, pna, qwen3_32b,
+        xdeepfm)

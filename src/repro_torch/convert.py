@@ -7,11 +7,13 @@ same arrays; ``delta_from_arrays`` does the same for a ``GraphDelta``,
 ``landmark_tables_from_arrays`` for a ``LandmarkIndex``'s two distance
 tables, ``fleet_from_arrays``, ``stacked_delta_from_arrays`` and
 ``fleet_state_from_arrays`` for a ``GraphFleet``, a stacked delta and a
-``FleetSolver.state_dict()``, and ``xdeepfm_params_from_arrays`` and
-``lm_params_from_arrays`` for a parameter tree.  So both packages can be
+``FleetSolver.state_dict()``, ``graph_batch_from_arrays`` and
+``triplet_batch_from_arrays`` for a GNN batch, and
+``xdeepfm_params_from_arrays``, ``lm_params_from_arrays`` and
+``gnn_params_from_arrays`` for a parameter tree.  So both packages can be
 run on identical inputs.  ``lm_params_to_arrays`` goes back, so that an
 LM tree's gradients compare with the reference's leaf by leaf (the
-xDeepFM trees have one structure in both packages).
+xDeepFM and GNN trees have one structure in both packages).
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ from repro_torch.core.graph import (CsrGraph, EllGraph, Graph, GraphStack,
                                     ell_row_len, resolve_device)
 from repro_torch.core.sssp.dynamic import GraphDelta, _delta_from_host
 from repro_torch.core.sssp.fleet import GraphFleet, StackedDelta
+from repro_torch.models.gnn.dimenet import TripletBatch
+from repro_torch.models.gnn.layers import GraphBatch
 
 
 def _arr(x, dtype, device) -> torch.Tensor:
@@ -200,3 +204,56 @@ def lm_params_to_arrays(params, cfg) -> dict:
     return {"embed": leaf(params["embed"]),
             "lm_head": leaf(params["lm_head"]),
             "final_norm": leaf(params["final_norm"]), "layers": layers}
+
+
+def gnn_params_from_arrays(params, device=None):
+    """A reference GNN parameter tree (nested dicts, lists and tuples of
+    arrays; NequIP's ``self``/``skip`` keyed by int l) as the port's:
+    the same structure and keys, every leaf a float32 tensor on
+    ``device``, so ``tree_leaves`` of both trees line up."""
+    device = resolve_device(device)
+
+    def tree(x):
+        if isinstance(x, dict):
+            return {k: tree(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(tree(v) for v in x)
+        return _arr(x, np.float32, device)
+    return tree(params)
+
+
+def _index(x, device) -> torch.Tensor:
+    return _arr(x, np.int64, device)
+
+
+def graph_batch_from_arrays(b, device=None):
+    """A reference ``GraphBatch`` as the port's (indices int64, the same
+    values; ``y`` keeps its kind: int64 labels or float32 targets)."""
+    device = resolve_device(device)
+    y = np.asarray(b.y)
+    return GraphBatch(
+        n_nodes=int(b.n_nodes), n_graphs=int(b.n_graphs),
+        x=_arr(b.x, np.float32, device), src=_index(b.src, device),
+        dst=_index(b.dst, device),
+        node_mask=_arr(b.node_mask, np.bool_, device),
+        graph_id=_index(b.graph_id, device),
+        pos=_arr(b.pos, np.float32, device),
+        y=(_index(y, device) if y.dtype.kind in "iu"
+           else _arr(y, np.float32, device)))
+
+
+def triplet_batch_from_arrays(b, device=None):
+    """A reference ``TripletBatch`` as the port's (indices int64, the
+    same values, padded triplets' ``t_ji == n_edges`` included)."""
+    device = resolve_device(device)
+    return TripletBatch(
+        n_nodes=int(b.n_nodes), n_edges=int(b.n_edges),
+        n_graphs=int(b.n_graphs), species=_index(b.species, device),
+        pos=_arr(b.pos, np.float32, device),
+        node_mask=_arr(b.node_mask, np.bool_, device),
+        graph_id=_index(b.graph_id, device), src=_index(b.src, device),
+        dst=_index(b.dst, device),
+        edge_mask=_arr(b.edge_mask, np.bool_, device),
+        t_kj=_index(b.t_kj, device), t_ji=_index(b.t_ji, device),
+        t_mask=_arr(b.t_mask, np.bool_, device),
+        y=_arr(b.y, np.float32, device))

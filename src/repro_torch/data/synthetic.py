@@ -1,8 +1,8 @@
-"""Seeded synthetic data (port of ``TokenStream`` and ``RecsysStream`` in
-``repro/data/synthetic.py``).
+"""Seeded synthetic data (port of ``TokenStream``, ``RecsysStream`` and
+``cora_like`` in ``repro/data/synthetic.py``).
 
 numpy only, so the same seed gives the same arrays as the reference;
-callers move them to a device.  ``cora_like`` is not ported yet.
+callers move them to a device.
 """
 from __future__ import annotations
 
@@ -68,3 +68,32 @@ class RecsysStream:
         hidden = np.where(idx >= 0, np.sin(0.137 * idx), 0.0)
         h = (hidden.sum(axis=(1, 2)) > 0).astype(np.int32)
         return {"indices": idx.astype(np.int32), "labels": h}
+
+
+def cora_like(n: int = 2708, e: int = 10556, d: int = 1433,
+              classes: int = 7, seed: int = 0):
+    """Citation-network-shaped synthetic node-classification data with
+    homophily (neighbours share labels more often than not): ``(n, src,
+    dst, x float32[n, d], labels)``."""
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, classes, n)
+    src, dst = [], []
+    while len(src) < e:
+        a = rng.integers(0, n)
+        same = np.where(labels == labels[a])[0]
+        b = int(rng.choice(same)) if rng.random() < 0.7 else \
+            int(rng.integers(0, n))
+        if a != b:
+            src.append(a)
+            dst.append(b)
+    # sparse bag-of-words features correlated with the label
+    x = np.zeros((n, d), np.float32)
+    words_per_class = d // classes
+    for i in range(n):
+        base = labels[i] * words_per_class
+        k = rng.integers(10, 40)
+        cols = base + rng.integers(0, words_per_class, k)
+        noise = rng.integers(0, d, k // 3)
+        x[i, cols] = 1.0
+        x[i, noise] = 1.0
+    return n, np.asarray(src), np.asarray(dst), x, labels

@@ -9,13 +9,18 @@ Trains the arch's smoke config (``--full``: its full config) from random
 weights (generator seed 0) on seeded synthetic data through ``Trainer``
 on ``--device`` (default ``cuda``): data -> loss -> AdamW -> checkpoints,
 with ``--resume auto`` restarting from the newest checkpoint.  LM archs
-train on ``TokenStream``, ``xdeepfm`` on ``RecsysStream``.  The GNN archs
-are not ported (ROADMAP A14.2).  ``main(argv)`` returns the exit code.
+train on ``TokenStream``, ``xdeepfm`` on ``RecsysStream``.  Every GNN
+arch (``gat-cora``, ``pna``, ``dimenet``, ``nequip``) trains what the
+reference's launcher trains for it: a ``GATConfig(in_dim=64,
+n_classes=7)`` on one ``cora_like(400, 1600, 64)`` graph, whatever the
+arch and ``--full``.  ``main(argv)`` returns the exit code.
 """
 from __future__ import annotations
 
 import argparse
 import sys
+
+import numpy as np
 
 
 def main(argv=None) -> int:
@@ -42,9 +47,9 @@ def main(argv=None) -> int:
 
     if args.arch not in list_archs():
         raise SystemExit(
-            f"--arch {args.arch}: the port trains the LM archs and xdeepfm; "
-            "the GNN archs are not ported yet (ROADMAP A14.2), and the "
-            "SSSP engine runs through repro_torch.sssp")
+            f"--arch {args.arch}: not a model arch of the port "
+            f"({', '.join(list_archs())}); the SSSP engine runs through "
+            "repro_torch.sssp")
     spec = get_arch(args.arch)
     device = resolve_device(args.device)
     gen = torch.Generator(device=device).manual_seed(0)
@@ -60,13 +65,23 @@ def main(argv=None) -> int:
         stream = TokenStream(cfg.vocab, args.seq, args.batch)
         trainer = Trainer(lambda p, b: tfm.loss_fn(p, b, cfg), params,
                           tcfg, stream.next_batch, name=args.arch)
-    else:                                   # recsys
+    elif spec.kind == "recsys":
         from repro_torch.data.synthetic import RecsysStream
         from repro_torch.models import xdeepfm as xd
         params = xd.init_params(cfg, gen, device)
         stream = RecsysStream(cfg.sizes(), cfg.offsets, args.batch)
         trainer = Trainer(xd.loss_fn, params, tcfg, stream.next_batch,
                           name=args.arch)
+    else:                                   # gnn: the reference's GAT run
+        from repro_torch.data.synthetic import cora_like
+        from repro_torch.models.gnn import gat
+        from repro_torch.models.gnn import layers as L
+        n, src, dst, x, y = cora_like(n=400, e=1600, d=64)
+        batch = L.build_batch(n, src, dst, x, y, device=device)
+        gcfg = gat.GATConfig(in_dim=64, n_classes=7)
+        params = gat.init_params(gcfg, gen, device)
+        trainer = Trainer(lambda p, b: gat.loss_fn(p, batch, gcfg), params,
+                          tcfg, lambda: {"_": np.zeros(1)}, name=args.arch)
 
     if args.resume == "auto":
         step = trainer.maybe_resume()

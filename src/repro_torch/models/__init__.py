@@ -1,2 +1,3 @@
-"""Models of the port (``repro/models``): xDeepFM scoring and the
-decoder-only LM (``transformer``, ``attention``, ``moe``, ``common``)."""
+"""Models of the port (``repro/models``): xDeepFM scoring, the
+decoder-only LM (``transformer``, ``attention``, ``moe``, ``common``) and
+the GNNs (``gnn``)."""

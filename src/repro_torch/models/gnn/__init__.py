@@ -1,1 +1,2 @@
-"""GNN substrate of the port; so far only the MLP of ``layers``."""
+"""GNNs of the port (``repro/models/gnn``): the segment-op substrate
+(``layers``), GAT, PNA, DimeNet, NequIP and the neighbour sampler."""
