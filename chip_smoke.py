@@ -43,9 +43,9 @@ Phases, each failing the run (non-zero exit) if it fails:
     on gnp a
     pure increase), ``resolve``, each held bitwise against a cold solve
     of the mutated graph and against scipy, launches checked;
-    ``[p2p]``: ``LandmarkIndex(k=8)`` on gnp (segment) and the grid
-    (pallas), batches of 8 seeded targeted pairs (64 on gnp through
-    segment and pallas, 8 on the grid through frontier), every target
+    ``[p2p]``: ``LandmarkIndex`` on gnp (segment, 8 landmarks) and the
+    grid (pallas, 4), batches of 8 seeded targeted pairs (64 on gnp
+    through segment and pallas, 8 on the grid through frontier), every target
     bitwise against the untargeted solve, every seed a lower bound up to
     f32 rounding, then the gnp index's ``apply_delta``;
     ``[bidi]``: ``BidirectionalSolver`` on the same graphs and pairs (8
@@ -54,7 +54,7 @@ Phases, each failing the run (non-zero exit) if it fails:
     bitwise ``[p2p]``'s, every path real edges, B1 launched twice a
     frontier round; then ``update`` with ``[dynamic]``'s delta refreshing
     2 grid and 8 gnp pairs warm, bitwise cold solves and near scipy;
-    ``[fleet]``: a segment ``FleetSolver`` over 8 grids of side 128
+    ``[fleet]``: a segment ``FleetSolver`` over 8 grids of side ``FLEET_SIDE``
     (``solve``, ``solve_batch`` [8, 8], stacked deltas, ``update``,
     ``resolve``), every member bitwise its per-graph solve, host reads
     rounds + 2 whatever F; a frontier fleet of 2 members; a
@@ -143,6 +143,21 @@ Phases, each failing the run (non-zero exit) if it fails:
     ["--ci"])``, then its fleets (``--ci`` and default) through the
     frontier route, ``dist`` bitwise the segment route's, B2 launched;
     the ``train`` launcher's gat-cora run.
+11. ``[dryrun]``: on the card (b) the work counter
+    (``launch/roofline.WorkCounter``) on one qwen3-32b x4 prefill of
+    8 x 1,024 and one train step of 4 x 1,024, B6 launched and counted,
+    each at or above ``lm_work``'s or ``train_work``'s least work, its
+    ms against its t_bound; (c) sssp_web_64m's shape for real (n
+    4,000,000, 64,000,000 G(n, p) edge draws made on the card, the graph
+    built by ``build_graph``), the distributed route at world 1 bitwise
+    the segment route, a round's ms against the counter's per-round
+    t_bound; then, with nothing else running, (a) in two CPU processes
+    on torch's ``fake`` process group, ``launch/dryrun.run_cell`` for
+    qwen3-32b ``train_4k`` (depth fit) and ``decode_32k``,
+    deepseek-moe-16b ``prefill_32k``, gat-cora ``ogb_products``, xdeepfm
+    ``train_batch`` and sssp ``sssp_web_64m`` on the (16, 16) mesh and
+    llama4-maverick ``train_4k`` on (2, 16, 16), one line a cell, a
+    failed cell failing the run.
 
 Each phase prints its wall time.
 
@@ -171,10 +186,13 @@ from pathlib import Path
 import numpy as np
 
 ROOT = Path(__file__).resolve().parent
-HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory, NVIDIA data sheet
-FP32_OPS_PER_S = 67e12        # H100 SXM f32 outside the tensor cores
-BF16_OPS_PER_S = 989e12       # H100 SXM dense bf16 on the tensor cores
-TF32_OPS_PER_S = 495e12       # H100 SXM dense TF32 on the tensor cores
+sys.path.insert(0, str(ROOT / "src"))
+# the H100 constants (NVIDIA data sheet) and the least-work functions
+# live in the package's roofline; a lone copy of this script stops here
+from repro_torch.launch.roofline import (  # noqa: E402
+    FP32_FLOPS as FP32_OPS_PER_S, HBM_BW as HBM_BYTES_PER_S,
+    PEAK_FLOPS as BF16_OPS_PER_S, TF32_FLOPS as TF32_OPS_PER_S, bound,
+    gnn_work, lm_work, train_work)
 REPS = 25
 DEVICE = "cuda"
 GRID_SIDE = 1024              # grid(side=1024): n = 2^20, 4.2 M edges
@@ -184,8 +202,9 @@ PARITY_N = 1 << 12            # card vs CPU parity graphs (sized for the
 #   script's time limit: its runs are host-bound, ~linear in rounds;
 #   2^13 took 124.2-172.2 s)
 PARITY_HUB_N = 1 << 9         # power_law's frontier fleet (see fleet_parity)
-FLEET_SIDE = 256              # [fleet]: 8 grids, n = 2^16 each (sized for
-#   the script's time limit: side 512 took ~150 s of the script's time)
+FLEET_SIDE = 192              # [fleet]: 8 grids, n = 36,864 each (sized
+#   for the script's time limit: side 512 took ~150 s of the script's
+#   time; 256 until the [dryrun] phase came)
 REPLAY_SIDE = 128             # [fleet] congestion replay: 8 grids, n = 2^14
 # a landmark seed is a difference of two f32 path sums, each of which may
 # be off by about (hops x 6e-8) of its value: a seed may pass the f32
@@ -293,12 +312,6 @@ def max_abs_err(torch, got, want) -> float:
     if not torch.equal(torch.isinf(g), torch.isinf(w)):
         return float("inf")
     return float((g[fin] - w[fin]).abs().max()) if fin.any() else 0.0
-
-
-def bound(nbytes: float, nops: float, ops_per_s: float = FP32_OPS_PER_S):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = nops / ops_per_s * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def record(rec, name, shape, ms, plain, lib, dev, b_ms, b_by, **extra):
@@ -1762,12 +1775,17 @@ def dynamic_phase(torch, pt):
     return runs, keep
 
 
+# [p2p]'s landmarks on the grid (each is a forward and a reverse solve
+# of ~3,700 rounds, about 5 s on the pallas route)
+P2P_GRID_LANDMARKS = 8
+
+
 def p2p_phase(torch, pt, main_runs):
     """Landmark-seeded targeted queries at n = 2^20.  gnp: an 8-landmark
     index on its default segment backend, 64 (s, t) pairs (seed 2024) in
     batches of 8 through "auto" (segment) and "pallas", each batch
-    untargeted, targeted and seeded-targeted; grid side 1024: an index on
-    the pallas backend, then 8 seeded targeted pairs through "auto"
+    untargeted, targeted and seeded-targeted; grid side 1024: an index of
+    ``P2P_GRID_LANDMARKS`` on the pallas backend, then 8 pairs through "auto"
     (frontier).  Every lane's target distance is held bitwise against the
     untargeted solve, fixed, the batch stamped partial, and every seed
     <= the full distances.  Then the gnp index takes the [dynamic] gnp
@@ -1782,20 +1800,21 @@ def p2p_phase(torch, pt, main_runs):
     dev = torch.device(DEVICE)
     runs = []
     keep = {}
-    plan = (("gnp", graph_arrays(pt, "gnp"), "segment", 64,
+    plan = (("gnp", graph_arrays(pt, "gnp"), "segment", 8, 64,
              ("auto", "pallas")),
-            ("grid", graph_arrays(pt, "grid"), "pallas", 8, ("auto",)))
-    for name, (n, src, dst, w), index_be, pairs, routes in plan:
+            ("grid", graph_arrays(pt, "grid"), "pallas", P2P_GRID_LANDMARKS,
+             8, ("auto",)))
+    for name, (n, src, dst, w), index_be, k, pairs, routes in plan:
         g = sssp.build_graph(n, src, dst, w, device=dev)
         rng = np.random.default_rng(2024)
         s_all = rng.choice(n, pairs, replace=False).astype(np.int64)
         t_all = rng.choice(n, pairs, replace=False).astype(np.int64)
         index, build_ms, lc = timed_run(
-            torch, lambda: sssp.LandmarkIndex(g, k=8, backend=index_be))
+            torch, lambda: sssp.LandmarkIndex(g, k=k, backend=index_be))
         runs.append(lc)
         tables = torch.cat([index.d_from, index.d_to])
         scale = float(tables[torch.isfinite(tables)].max())
-        log(f"  {name}: LandmarkIndex(k=8, backend={index_be!r}) built in "
+        log(f"  {name}: LandmarkIndex(k={k}, backend={index_be!r}) built in "
             f"{build_ms:.1f} ms (landmarks {index.landmarks.tolist()}), "
             f"launches {nonzero(lc)}")
         mine = keep[name] = dict(g=g, index=index, s=s_all, t=t_all,
@@ -3283,43 +3302,6 @@ PREFILL_MEAN_TOL = 2.5e-2
 FLIP_SHARE = 0.1
 
 
-def lm_work(cfg, B: int, S: int):
-    """The least bytes and operations of a bf16 prefill of ``B`` prompts
-    of ``S`` tokens and of one decode step at position S: each weight
-    read once (the embedding table only gathered; of a MoE layer's
-    experts, all in the prefill and at most B * top_k in a step), the
-    cache written once and read once a step, and 2 operations a
-    multiply-add: the products of the tokens' active weights, the causal
-    attention, the head at the last position only.  Returns ((bytes,
-    ops) of the prefill, (bytes, ops) of a step)."""
-    d, hd, H, Hkv, L = (cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads,
-                        cfg.n_layers)
-    elt = 2
-    attn = d * H * hd + 2 * d * Hkv * hd + H * hd * d
-    act, weights, weights_step = 0, 0, 0
-    for i in range(L):
-        if cfg.layer_is_moe(i):
-            E, f, K = cfg.moe.n_experts, cfg.moe.d_ff_expert, cfg.moe.top_k
-            shared = 3 * d * f * cfg.moe.n_shared
-            act += attn + d * E + 3 * d * f * K + shared
-            weights += attn + d * E + 3 * d * f * E + shared
-            weights_step += attn + d * E + 3 * d * f * min(E, B * K) + shared
-        else:
-            act += attn + 3 * d * cfg.d_ff
-            weights += attn + 3 * d * cfg.d_ff
-            weights_step += attn + 3 * d * cfg.d_ff
-    head = d * cfg.vocab
-    kv = 2 * L * B * Hkv * hd * elt                # bytes a position
-    pre_ops = (2.0 * B * S * act + 2.0 * B * H * S * S * hd * L
-               + 2.0 * B * head)
-    pre_bytes = (elt * (weights + head + B * S * d) + kv * S
-                 + 4 * B * cfg.vocab)
-    step_ops = 2.0 * B * (act + head) + 4.0 * B * H * (S + 1) * hd * L
-    step_bytes = (elt * (weights_step + head + B * d) + kv * (S + 1)
-                  + 4 * B * cfg.vocab)
-    return (pre_bytes, pre_ops), (step_bytes, step_ops)
-
-
 def watch_plain_attention():
     """Wraps ``ref.flash_attention_ref`` (the plain version B6's wrapper
     takes for CPU tensors) to count its calls; returns the count list
@@ -3362,12 +3344,12 @@ def watch_routing(torch):
     real = tfm.moe_ffn
     calls = []
 
-    def watching(params, x, cfg):
+    def watching(params, x, cfg, **kw):
         probs = torch.softmax(x.float() @ params["router"], dim=-1)
         top = torch.topk(probs, cfg.top_k + 1, dim=-1)
         calls.append((top.indices[..., :cfg.top_k].sort(-1).values,
                       top.values[..., -2] - top.values[..., -1]))
-        return real(params, x, cfg)
+        return real(params, x, cfg, **kw)
     tfm.moe_ffn = watching
 
     def undo():
@@ -3689,21 +3671,6 @@ def counting_steps(torch, trainer):
     return per_step
 
 
-def train_work(cfg, B: int, S: int):
-    """(operations, AdamW bytes) of one training step of an LM on B
-    sequences of S tokens: 6 operations a token for every weight of a
-    product the token goes through (the embedding is a gather, not a
-    product; of a MoE layer's experts the top-k and the shared), plus
-    the causal attention (forward 2 and backward 5 products of S*S*hd
-    multiply-adds, half masked, a head and layer); AdamW reads params,
-    grads and both f32 moments and writes params and moments once."""
-    emb = cfg.vocab * cfg.d_model
-    ops = (6.0 * (cfg.active_param_count() - emb) * B * S
-           + 7.0 * B * cfg.n_heads * S * S * cfg.hd * cfg.n_layers)
-    elt = 2 if cfg.param_dtype == "bfloat16" else 4
-    return ops, cfg.param_count() * (3 * elt + 16)
-
-
 def lm_train_full(torch, cfg, shape):
     """``Trainer`` on one full-width bf16 config: random weights (seed 0),
     ``shape["steps"]`` AdamW steps on ``TokenStream(vocab, S, B)``, each
@@ -4003,17 +3970,6 @@ PNA_GRAPH = dict(n=1 << 20, avg_deg=25)
 # (3,840 atoms, 8,192 edges; all within the 5 A cutoff)
 MOLECULES = dict(n_mol=128, n_atom=30, pairs=32, box=6.0)
 GNN_TOL = 2e-3                # card vs CPU, [train]'s rule
-
-
-def gnn_work(arch: str, cfg, n_edges: int) -> float:
-    """Operations of one training step (3 x the forward) of a GNN over
-    ``n_edges`` edges, by the reference's FLOP formulas (its
-    ``build_cell``'s ``flops_per_edge``, kept in each config's
-    ``cell_flops``)."""
-    import importlib
-    mod = importlib.import_module(
-        f"repro_torch.configs.{arch.replace('-', '_')}")
-    return 3.0 * mod.cell_flops(cfg, n_edges)
 
 
 def gnn_cora(dev):
@@ -4319,6 +4275,296 @@ def gnn_phase(torch):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# [dryrun]: the dry-run's cells, the work counter on real steps, and
+# sssp_web_64m for real
+# ---------------------------------------------------------------------------
+
+# (arch, shape, multi-pod) cells of the dry-run, in two processes that run
+# after the card's part of the phase, side by side (the fake group needs
+# a process of its own; llama4's calibrated train cell is as long as the
+# rest)
+DRYRUN_CELLS = (
+    (("qwen3-32b", "train_4k", False), ("qwen3-32b", "decode_32k", False),
+     ("deepseek-moe-16b", "prefill_32k", False),
+     ("gat-cora", "ogb_products", False), ("xdeepfm", "train_batch", False),
+     ("sssp", "sssp_web_64m", False)),
+    (("llama4-maverick-400b-a17b", "train_4k", True),),
+)
+DRYRUN_TIMEOUT = 400          # seconds a dry-run process may take
+# sssp_web_64m's shape (configs/sssp_synth.py): n 4,000,000 and 64,000,000
+# edge draws, G(n, p) at mean degree 16 with the generator's weights
+SSSP_WEB = dict(n=4_000_000, avg_deg=16, seed=0)
+DRYRUN_SCRIPT = """
+import json, sys
+from repro_torch.launch.dryrun import quiet_dtensor, run_cell
+quiet_dtensor()
+bad = 0
+for arch, shape, multi in json.loads(sys.argv[1]):
+    rec = run_cell(arch, shape, multi, None, verbose=False)
+    keep = ("arch", "shape", "mesh", "chips", "kind", "status", "error",
+            "run_s", "argument_size_in_bytes", "peak_size_in_bytes",
+            "roofline")
+    print(json.dumps({k: rec.get(k) for k in keep}), flush=True)
+    bad += rec["status"] != "ok"
+sys.exit(1 if bad else 0)
+"""
+
+
+def dryrun_start():
+    """The dry-run processes, started (CPU only: fake tensors on a fake
+    process group, one thread each), their output to files under
+    ``build/``; killed if the script ends first."""
+    import atexit
+    import os
+    out_dir = ROOT / "build"
+    out_dir.mkdir(exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1")
+    procs = []
+    for i, cells in enumerate(DRYRUN_CELLS):
+        out = out_dir / f"dryrun_{i}.log"
+        with open(out, "w") as f:
+            procs.append((subprocess.Popen(
+                [sys.executable, "-c", DRYRUN_SCRIPT, json.dumps(cells)],
+                cwd=str(ROOT), env=env, stdout=f,
+                stderr=subprocess.STDOUT, text=True), out))
+    atexit.register(lambda: [p.kill() for p, _ in procs
+                             if p.poll() is None])
+    return procs
+
+
+def dryrun_finish(procs) -> None:
+    """Waits for the dry-run processes and logs one line a cell; a failed
+    cell or process fails the run."""
+    n = 0
+    for proc, out in procs:
+        try:
+            proc.wait(timeout=DRYRUN_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            fail(f"[dryrun] a dry-run process passed {DRYRUN_TIMEOUT} s")
+        text = out.read_text()
+        for line in text.splitlines():
+            if not line.startswith("{"):
+                continue
+            r = json.loads(line)
+            n += 1
+            tag = f"{r['arch']} {r['shape']} {r['mesh']} ({r['chips']} chips)"
+            check(r["status"] == "ok", f"[dryrun] {tag}: {r.get('error')}")
+            ro = r["roofline"]
+            log(f"  {tag}: ok in {r['run_s']} s; per chip "
+                f"{ro['flops_per_chip']:.4e} FLOP, "
+                f"{ro['bytes_per_chip']:.4e} B, collectives "
+                f"{ro['collective_bytes_per_chip']:.4e} B, arguments "
+                f"{r['argument_size_in_bytes']:,} B, peak "
+                f"{ro['peak_bytes_per_chip']:.4e} B"
+                f"{'' if ro['fits'] else ' (does not fit 80 GB)'}; t_bound "
+                f"{ro['t_bound_s'] * 1e3:.3f} ms ({ro['bottleneck']}), "
+                f"roofline fraction {ro['roofline_fraction']:.3f}, "
+                f"{ro['correction']}")
+        check(proc.returncode == 0,
+              f"[dryrun] a dry-run process exited {proc.returncode}: "
+              f"{text[-2000:]}")
+    want = sum(len(c) for c in DRYRUN_CELLS)
+    check(n == want, f"[dryrun] {n} records, want {want}")
+
+
+def counted_terms(c):
+    """The roofline terms of one card's counted run (no collectives)."""
+    from repro_torch.launch.roofline import RooflineTerms
+    return RooflineTerms(flops=c.flops, bytes_accessed=c.bytes,
+                         collective_bytes=0.0, n_chips=1, collective_s=0.0,
+                         peak_bytes=c.peak)
+
+
+def counted_steps(torch):
+    """The work counter on real steps on the card: a qwen3-32b ×4 prefill
+    of ``LM_SHAPE`` and a train step of ``TRAIN_SHAPE`` (B6 launched as
+    usual, its launches counted), each at or above ``lm_work``'s or
+    ``train_work``'s least work; the counted steps' ms against their
+    t_bound.  Returns the counted runs' launch counts."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import _build
+    from repro_torch.launch.roofline import WorkCounter
+    from repro_torch.models import transformer as tfm
+    from repro_torch.optim import adamw_init
+    from repro_torch.runtime.train_loop import TrainConfig, make_train_step
+    import dataclasses
+    dev = torch.device(DEVICE)
+    cfg = dataclasses.replace(get_arch("qwen3-32b").full, n_layers=LM_LAYERS)
+    L = cfg.n_layers
+    params = tfm.init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+    B, S = LM_SHAPE["B"], LM_SHAPE["S"]
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (B, S)).astype(np.int32)).to(dev)
+    runs = []
+    with torch.inference_mode():
+        tfm.prefill(params, toks, cfg, S + 8)          # warm
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        c = WorkCounter()
+        c.track(params)
+        with c:
+            tfm.prefill(params, toks, cfg, S + 8)
+        torch.cuda.synchronize()
+        lc = _build.launch_counts()
+        runs.append(lc)
+        check(lc["flash_attention"] == L,
+              f"[dryrun] counted prefill: {nonzero(lc)}, want {L} B6")
+        ms = time_ms(torch, lambda: tfm.prefill(params, toks, cfg, S + 8),
+                     reps=3, warmup=0)
+    (pb, po), _ = lm_work(cfg, B, S)
+    t = counted_terms(c)
+    log(f"  qwen3-32b ×{L} prefill B={B} S={S}: counted {c.flops:.4e} "
+        f"FLOP (least {po:.4e}), {c.bytes:.4e} B (least {pb:.4e}), peak "
+        f"{c.peak:.4e} B, {c.ops} ops; {ms:.3f} ms (events, median of 3) "
+        f"against t_bound {t.t_bound * 1e3:.3f} ms ({t.bottleneck}): "
+        f"{ms / (t.t_bound * 1e3):.2f}×; B6 {lc['flash_attention']}")
+    check(c.flops >= po and c.bytes >= pb,
+          "[dryrun] the counted prefill is below lm_work's least work")
+
+    TB, TS = TRAIN_SHAPE["B"], TRAIN_SHAPE["S"]
+    batch = {"tokens": torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (TB, TS + 1)).astype(np.int64)).to(dev)}
+    opt = adamw_init(params)
+    step = make_train_step(lambda p, b: tfm.loss_fn(p, b, cfg),
+                           TrainConfig(peak_lr=1e-4, warmup=2,
+                                       total_steps=10))
+    step(params, opt, batch)                          # warm
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    c = WorkCounter()
+    c.track([params, opt, batch])
+    with c:
+        _, _, metrics = step(params, opt, batch)
+    torch.cuda.synchronize()
+    lc = _build.launch_counts()
+    runs.append(lc)
+    check(lc["flash_attention_lse"] == L and lc["flash_attention_bwd"] == L,
+          f"[dryrun] counted train step: {nonzero(lc)}, want {L} B6 "
+          "forwards with lse and backwards")
+    check(bool(torch.isfinite(metrics["loss"])),
+          "[dryrun] the counted train step's loss is not finite")
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    step(params, opt, batch)
+    t1.record()
+    torch.cuda.synchronize()
+    ms = t0.elapsed_time(t1)
+    ops, adam_bytes = train_work(cfg, TB, TS)
+    t = counted_terms(c)
+    log(f"  qwen3-32b ×{L} train step B={TB} S={TS}: counted {c.flops:.4e} "
+        f"FLOP (least {ops:.4e}), {c.bytes:.4e} B (AdamW's least "
+        f"{adam_bytes:.4e}), peak {c.peak:.4e} B, {c.ops} ops; {ms:.1f} ms "
+        f"(events, one step) against t_bound {t.t_bound * 1e3:.1f} ms "
+        f"({t.bottleneck}): {ms / (t.t_bound * 1e3):.2f}×")
+    check(c.flops >= ops and c.bytes >= adam_bytes,
+          "[dryrun] the counted train step is below train_work's least "
+          "work")
+    del params, opt, batch, step
+    torch.cuda.empty_cache()
+    return runs
+
+
+def device_gnp(torch, sssp, n: int, avg_deg: float, seed: int):
+    """``generators.gnp``'s graph model with its draws made on the card
+    (64 M draws and their de-duplication take the host a minute):
+    ``n * avg_deg`` (src, dst) draws with uniform[0.05, 1) weights, self
+    loops and repeated pairs dropped (the first kept), then the package's
+    ``build_graph`` on the host arrays.  The edges reach it in dst order
+    (a stable sort, so ``build_graph``'s own stable sort keeps that order
+    and has nothing to move)."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    e = int(n * avg_deg)
+    src = torch.randint(0, n, (e,), generator=gen, device=dev)
+    dst = torch.randint(0, n, (e,), generator=gen, device=dev)
+    w = torch.rand(e, generator=gen, device=dev) * 0.95 + 0.05
+    keep = src != dst
+    src, dst, w = src[keep], dst[keep], w[keep]
+    key, order = torch.sort(src * n + dst, stable=True)
+    first = torch.ones_like(key, dtype=torch.bool)
+    first[1:] = key[1:] != key[:-1]
+    idx = torch.sort(order[first]).values
+    src, dst, w = src[idx], dst[idx], w[idx]
+    dst, order = torch.sort(dst, stable=True)
+    src, w = src[order], w[order]
+    return sssp.build_graph(n, src.int().cpu().numpy(),
+                            dst.int().cpu().numpy(), w.cpu().numpy(),
+                            device=dev)
+
+
+def sssp_web_real(torch, pt):
+    """The paper's own cell for real: sssp_web_64m's shape on one card,
+    solved on the distributed route at world 1 and on the segment route
+    (bitwise the same), a few rounds timed against the work counter's
+    per-round t_bound (``round_program``'s round).  Returns the counted
+    runs' launch counts."""
+    from repro_torch.core.sssp.distributed import round_program
+    from repro_torch.launch.roofline import WorkCounter
+    sssp = pt["sssp"]
+    t0 = time.perf_counter()
+    g = device_gnp(torch, sssp, **SSSP_WEB)
+    torch.cuda.synchronize()
+    log(f"  sssp_web_64m: n {g.n:,}, {g.e:,} edges (e_pad {g.e_pad:,}), "
+        f"drawn on the card, built by build_graph, in "
+        f"{time.perf_counter() - t0:.2f} s")
+    source = 0
+    runs = []
+    res = {}
+    for be in ("distributed", "segment"):
+        solver = sssp.Solver(g, backend=be, device=g.device)
+        solver.solve(source)                           # warm
+        r, ms, lc = timed_run(torch, lambda: solver.solve(source))
+        runs.append(lc)
+        res[be] = (r, ms)
+        if be == "distributed":
+            check(solver.world == 1, f"[dryrun] world {solver.world}")
+    (rd, ms_d), (rs, ms_s) = res["distributed"], res["segment"]
+    check(same(torch, rd, rs), "[dryrun] sssp_web_64m: the distributed "
+                               "route differs from the segment route")
+    check(int(rd.dist[source]) == 0 and bool(torch.isfinite(rd.dist).any()),
+          "[dryrun] sssp_web_64m: bad distances")
+    run, inputs, _ = round_program(g, None, source)
+    c = WorkCounter()
+    c.track(inputs)
+    with c:
+        run()
+    torch.cuda.synchronize()
+    t = counted_terms(c)
+    rms = time_ms(torch, run, reps=5, warmup=1)
+    log(f"  sssp_web_64m distributed (world 1) and segment: bitwise, "
+        f"{rd.rounds} rounds, {int(rd.fixed.sum()):,} fixed; solve "
+        f"{ms_d:.1f} / {ms_s:.1f} ms (host clock) = "
+        f"{ms_d / rd.rounds:.3f} ms a round; one round {rms:.3f} ms "
+        f"(events, median of 5) against the counter's per-round t_bound "
+        f"{t.t_bound * 1e3:.3f} ms ({t.bottleneck}; {c.bytes:.4e} B, "
+        f"{c.coll['count']} all-reduces of world 1): "
+        f"{rms / (t.t_bound * 1e3):.2f}×")
+    del g
+    torch.cuda.empty_cache()
+    return runs
+
+
+def dryrun_phase(torch, pt):
+    """(b) the work counter on a qwen3-32b ×4 prefill and train step on
+    the card and (c) sssp_web_64m solved for real, then (a) the dry-run's
+    cells (``DRYRUN_CELLS``) in their processes, started only now so
+    that nothing timed shares the host with them.  Returns the counted
+    runs' launch counts."""
+    runs = counted_steps(torch)
+    runs += sssp_web_real(torch, pt)
+    t0 = time.perf_counter()
+    dryrun_finish(dryrun_start())
+    log(f"  the dry-run's {sum(map(len, DRYRUN_CELLS))} cells in "
+        f"{len(DRYRUN_CELLS)} processes: {time.perf_counter() - t0:.1f} s")
+    return runs
+
+
 KERNELS = {
     "frontier_relax": (
         "src/repro_torch/kernels/csrc/frontier_relax.cu",
@@ -4445,6 +4691,9 @@ def main() -> int:
     runs_gnn = phase("gnn", "GNNs: gat-cora, pna, dimenet and nequip at "
                      "full width, card against the CPU, the distance-feature "
                      "path, the train launcher", lambda: gnn_phase(torch))
+    runs_dry = phase("dryrun", "the dry-run's cells on fake meshes, the "
+                     "work counter on real steps, sssp_web_64m for real",
+                     lambda: dryrun_phase(torch, pt))
     if args.profile:
         log("[profile] torch.profiler over the first rounds of each route")
         profile_phase(torch, pt)
@@ -4454,7 +4703,7 @@ def main() -> int:
     for lc in (launch_runs + runs_dyn + runs_p2p + runs_bidi + runs_fleet
                + runs_serve + runs_launch + runs_base + runs_dist
                + runs_legacy + [xd_launch, attn_launch] + runs_lm
-               + runs_train + runs_gnn):
+               + runs_train + runs_gnn + runs_dry):
         for k, v in lc.items():
             main_launch[k] += v
     kernels = []

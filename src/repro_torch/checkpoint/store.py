@@ -61,6 +61,12 @@ def tree_leaves(tree) -> list:
     return [x for _, x in _flatten(tree)]
 
 
+def tree_items(tree) -> list:
+    """``(path, leaf)`` pairs in ``tree_leaves`` order; a path is the
+    "/"-joined keys and indices (the manifest's)."""
+    return [("/".join(map(str, p)), x) for p, x in _flatten(tree)]
+
+
 def tree_unflatten(like, leaves):
     """``like``'s structure with ``leaves`` (in ``tree_leaves`` order)."""
     return _rebuild(like, iter(leaves))

@@ -1,25 +1,28 @@
-"""Model configurations of the port (``repro/configs``).
+"""Architecture registry of the port (``repro/configs``).
 
 The five LM architectures (kind ``"lm"``), xDeepFM (``xdeepfm``, kind
-``"recsys"``) and the four GNNs (``gat-cora``, ``pna``, ``dimenet``,
-``nequip``, kind ``"gnn"``; their shape table in ``cells``) register
-here: ``get_arch(name)`` / ``list_archs()``
-resolve an ``--arch`` id to its ``ArchSpec`` (full and smoke configs,
-the reference's dry-run shape names).  The reference's ``build_cell``
-(an XLA lowering of a dry-run cell) has no counterpart.
+``"recsys"``), the four GNNs (``gat-cora``, ``pna``, ``dimenet``,
+``nequip``, kind ``"gnn"``) and the paper's own engine (``sssp``, kind
+``"sssp"``) register here: ``get_arch(name)`` / ``list_archs()`` resolve
+an ``--arch`` id to its ``ArchSpec`` (full and smoke configs, the
+dry-run shape names, and ``build_cell(cfg, shape) -> cells.Cell``, the
+rank's step that ``launch/dryrun`` runs on a mesh).
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchSpec:
     name: str
-    kind: str                       # lm | recsys | gnn
+    kind: str                       # lm | gnn | recsys | sssp
     full: object                    # full-size model config
     smoke: object                   # reduced config for CPU smoke tests
-    shapes: tuple[str, ...]         # the reference's dry-run cell names
+    shapes: tuple[str, ...]         # applicable dry-run cells
+    # build_cell(cfg, shape_name) -> Cell (see configs.cells)
+    build_cell: Callable
     notes: str = ""
 
 
@@ -41,18 +44,9 @@ def list_archs() -> list[str]:
     return sorted(_REGISTRY)
 
 
-def lm_shapes_for(cfg) -> tuple[str, ...]:
-    """The reference's dry-run cells of an LM (``configs/cells.py``):
-    ``long_500k`` only for sub-quadratic attention."""
-    shapes = ["train_4k", "prefill_32k", "decode_32k"]
-    if cfg.sub_quadratic:
-        shapes.append("long_500k")
-    return tuple(shapes)
-
-
 def _ensure_loaded() -> None:
     # every module, whatever a caller imported first
     from repro_torch.configs import (  # noqa: F401
         command_r_35b, command_r_plus_104b, deepseek_moe_16b, dimenet,
         gat_cora, llama4_maverick_400b_a17b, nequip, pna, qwen3_32b,
-        xdeepfm)
+        sssp_synth, xdeepfm)

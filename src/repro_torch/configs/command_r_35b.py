@@ -2,7 +2,8 @@
 of ``repro/configs/command_r_35b.py``)
 40L d_model=8192 64H (GQA kv=8) d_ff=22528 vocab=256000, dense, no-bias.
 """
-from repro_torch.configs import ArchSpec, lm_shapes_for, register
+from repro_torch.configs import ArchSpec, register
+from repro_torch.configs.cells import lm_cell, lm_shapes_for
 from repro_torch.models.transformer import LMConfig
 
 FULL = LMConfig(
@@ -19,5 +20,6 @@ SMOKE = LMConfig(
 ARCH = register(ArchSpec(
     name="command-r-35b", kind="lm", full=FULL, smoke=SMOKE,
     shapes=lm_shapes_for(FULL),
+    build_cell=lambda cfg, shape: lm_cell(cfg, shape, "command-r-35b"),
     notes="dense GQA, no-bias",
 ))

@@ -2,7 +2,8 @@
 (port of ``repro/configs/command_r_plus_104b.py``)
 64L d_model=12288 96H (GQA kv=8) d_ff=33792 vocab=256000, dense, no-bias.
 """
-from repro_torch.configs import ArchSpec, lm_shapes_for, register
+from repro_torch.configs import ArchSpec, register
+from repro_torch.configs.cells import lm_cell, lm_shapes_for
 from repro_torch.models.transformer import LMConfig
 
 FULL = LMConfig(
@@ -19,5 +20,7 @@ SMOKE = LMConfig(
 ARCH = register(ArchSpec(
     name="command-r-plus-104b", kind="lm", full=FULL, smoke=SMOKE,
     shapes=lm_shapes_for(FULL),
+    build_cell=lambda cfg, shape: lm_cell(
+        cfg, shape, "command-r-plus-104b"),
     notes="dense GQA, no-bias; the largest dense cell (104B params)",
 ))

@@ -6,7 +6,8 @@ MoE: 2 shared + 64 routed top-6 (fine-grained experts, d_ff_expert=1408).
 As in the reference, all 28 layers are MoE (the HF checkpoint keeps
 layer 0 dense), which changes <0.5% of FLOPs.
 """
-from repro_torch.configs import ArchSpec, lm_shapes_for, register
+from repro_torch.configs import ArchSpec, register
+from repro_torch.configs.cells import lm_cell, lm_shapes_for
 from repro_torch.models.moe import MoEConfig
 from repro_torch.models.transformer import LMConfig
 
@@ -29,5 +30,6 @@ SMOKE = LMConfig(
 ARCH = register(ArchSpec(
     name="deepseek-moe-16b", kind="lm", full=FULL, smoke=SMOKE,
     shapes=lm_shapes_for(FULL),
+    build_cell=lambda cfg, shape: lm_cell(cfg, shape, "deepseek-moe-16b"),
     notes="fine-grained MoE 64e top-6 + 2 shared; MHA (kv=16)",
 ))

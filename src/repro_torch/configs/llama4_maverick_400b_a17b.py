@@ -7,7 +7,8 @@ Attention: iRoPE-style — 3 of every 4 layers use chunked local
 attention (8192-token chunks), every 4th is global; local layers keep a
 chunk-sized KV cache.
 """
-from repro_torch.configs import ArchSpec, lm_shapes_for, register
+from repro_torch.configs import ArchSpec, register
+from repro_torch.configs.cells import lm_cell, lm_shapes_for
 from repro_torch.models.moe import MoEConfig
 from repro_torch.models.transformer import LMConfig
 
@@ -34,5 +35,7 @@ SMOKE = LMConfig(
 ARCH = register(ArchSpec(
     name="llama4-maverick-400b-a17b", kind="lm", full=FULL, smoke=SMOKE,
     shapes=lm_shapes_for(FULL),  # includes long_500k: sub-quadratic
+    build_cell=lambda cfg, shape: lm_cell(
+        cfg, shape, "llama4-maverick-400b-a17b"),
     notes="MoE 128e top-1 + shared; chunked-local attention (iRoPE)",
 ))

@@ -3,7 +3,9 @@
 scalers identity/amplification/attenuation.
 """
 from repro_torch.configs import ArchSpec, register
-from repro_torch.configs.cells import GNN_SHAPE_NAMES, GNN_SHAPES
+from repro_torch.configs.cells import GNN_SHAPE_NAMES, GNN_SHAPES, gnn_cell
+from repro_torch.configs.gat_cora import to_graph_batch
+from repro_torch.models.gnn import pna
 from repro_torch.models.gnn.pna import PNAConfig
 
 _CLASSES = {"full_graph_sm": 7, "minibatch_lg": 47,
@@ -27,8 +29,18 @@ def cell_flops(cfg: PNAConfig, n_edges: int) -> float:
     return cfg.n_layers * 2.0 * (2 * d) * d * 2 * n_edges
 
 
+def build_cell(cfg, shape):
+    c = cfg_for(shape)
+    return gnn_cell(
+        "pna", shape,
+        init_fn=lambda gen, dev: pna.init_params(c, gen, dev),
+        loss_fn=lambda p, mb: pna.loss_fn(p, mb, c),
+        batch_to_model=to_graph_batch, molecular=False,
+        flops_per_edge=cell_flops(c, 1))
+
+
 ARCH = register(ArchSpec(
     name="pna", kind="gnn", full=FULL, smoke=SMOKE,
-    shapes=GNN_SHAPE_NAMES,
+    shapes=GNN_SHAPE_NAMES, build_cell=build_cell,
     notes="multi-aggregator (4 reducers x 3 degree scalers)",
 ))

@@ -2,7 +2,8 @@
 64L d_model=5120 64H (GQA kv=8) d_ff=25600 vocab=151936, qk_norm,
 head_dim=128 (explicit — 64*128=8192 != d_model).
 """
-from repro_torch.configs import ArchSpec, lm_shapes_for, register
+from repro_torch.configs import ArchSpec, register
+from repro_torch.configs.cells import lm_cell, lm_shapes_for
 from repro_torch.models.transformer import LMConfig
 
 FULL = LMConfig(
@@ -20,5 +21,6 @@ SMOKE = LMConfig(
 ARCH = register(ArchSpec(
     name="qwen3-32b", kind="lm", full=FULL, smoke=SMOKE,
     shapes=lm_shapes_for(FULL),
+    build_cell=lambda cfg, shape: lm_cell(cfg, shape, "qwen3-32b"),
     notes="dense GQA with per-head qk RMSNorm",
 ))

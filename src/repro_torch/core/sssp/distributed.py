@@ -20,13 +20,15 @@ Garg's rounds on R ranks, as the reference maps them onto a device mesh:
     stay matched.
 
 The process group takes the place of the reference's ``(mesh, axes)``,
-whose axes the reference flattens into one edge axis anyway, so
-``distributed/mesh.py`` has no counterpart.  ``default_group`` is the
-default process group when one is initialized, else a world of one in
-which the combine is the identity (the reference's default mesh of one
-device); the solve runs on the caller's device either way.  The
-reference's ``lower_distributed`` (an XLA lowering for its dry-run) has
-no counterpart here.
+whose axes the reference flattens into one edge axis anyway
+(``edge_group`` flattens a mesh's data axes into one group).
+``default_group`` is the default process group when one is initialized,
+else a world of one in which the combine is the identity (the
+reference's default mesh of one device); the solve runs on the caller's
+device either way.  ``round_program`` is the counterpart of the
+reference's ``lower_distributed``: a rank's program of one SP4 round, for
+the dry-run (the round count is data-dependent, so the dry-run prices a
+round).
 """
 from __future__ import annotations
 
@@ -88,6 +90,45 @@ def sharded_prims(g: Graph, group, rank: int, world: int,
                   counter: CollectiveCounter) -> Primitives:
     """The distributed primitives over rank ``rank``'s block of ``g``."""
     return distributed_prims(local_block(g, rank, world), group, counter)
+
+
+def edge_group(mesh):
+    """The process group of this rank's data axes of ``mesh`` flattened
+    into one edge axis (the ranks that share its model coordinate), and
+    its size."""
+    from repro_torch.distributed.mesh import data_axes
+    from repro_torch.optim.adamw import host_scalars
+    axes = data_axes(mesh)
+    with host_scalars():        # the mesh's rank tensor stays real
+        sub = mesh[axes[0]] if len(axes) == 1 else mesh[axes]._flatten()
+    return sub.get_group(), sub.size()
+
+
+def round_program(g: Graph, group=None, source: int = 0,
+                  cfg: SSSPConfig = SP4_CONFIG):
+    """This rank's program of ONE SP4 round on the edge-sharded graph
+    (the counterpart of the reference's ``lower_distributed``): ``g``
+    padded as ``shard_graph_edges`` pads it for the group's world, the
+    rank's block relaxed, the minima combined by all-reduces.  Returns
+    ``(run, inputs, counter)``: ``run()`` makes the round from the cold
+    state at ``source``, ``inputs`` are the tensors it reads (the block
+    and the vertex vectors) and ``counter`` its collectives."""
+    from repro_torch.core.sssp import engine
+    group, rank, world = resolve_group(group)
+    g = shard_graph_edges(g, world)
+    counter = CollectiveCounter()
+    prims = sharded_prims(g, group, rank, world, counter)
+    lg = local_block(g, rank, world)
+    sources = torch.full((1,), int(source), dtype=torch.int64,
+                         device=g.device)
+    state = engine._init_state(g, sources)
+
+    def run():
+        return engine._round(g, cfg, state, prims)
+    inputs = {"edges": [lg.src, lg.dst, lg.w],
+              "vertices": [g.in_deg, g.out_deg, g.in_weight, g.out_weight],
+              "state": [state.D, state.C, state.fixed]}
+    return run, inputs, counter
 
 
 def run_sssp_distributed(g: Graph, source: int = 0,

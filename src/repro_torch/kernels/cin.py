@@ -26,6 +26,12 @@ weight gradient ``dw[k, h, m] = sum_{b, d} g x_k x_0`` is a kernel of its
 own, ``cin_weight_grad`` (``csrc/cin.cu``), with its own split plan
 (``wgrad_plan``) and launch key.  On the CPU each call takes its plain
 version.
+
+The forward and the weight gradient are ``torch.library.custom_op``s
+(``repro_torch::cin_layer``, ``cin_weight_grad``) with fake
+implementations (their output shapes: a fake tensor never builds the
+plain version's ``z``), FLOP formulas and DTensor rules (a call on
+batch-sharded tensors is local), for the dry-run.
 """
 from __future__ import annotations
 
@@ -195,6 +201,11 @@ def input_grad_x0(g: torch.Tensor, x_k: torch.Tensor,
 
 def _forward(x_k: torch.Tensor, x_0: torch.Tensor,
              w: torch.Tensor) -> torch.Tensor:
+    return _layer_op(x_k, x_0, w)
+
+
+def _forward_impl(x_k: torch.Tensor, x_0: torch.Tensor,
+                  w: torch.Tensor) -> torch.Tensor:
     if x_k.device.type == "cpu":
         return ref.cin_layer_ref(x_k, x_0, w)
     B, H, D = x_k.shape
@@ -244,6 +255,13 @@ def cin_weight_grad(g: torch.Tensor, x_k: torch.Tensor,
                          "[B, H, D] and [B, M, D]")
     if g.device.type not in ("cpu", "cuda"):
         raise ValueError(f"no kernel for device {g.device}")
+    return _wgrad_op(g, x_k, x_0)
+
+
+def _wgrad_impl(g: torch.Tensor, x_k: torch.Tensor,
+                x_0: torch.Tensor) -> torch.Tensor:
+    B, K, D = g.shape
+    H, M = x_k.shape[1], x_0.shape[1]
     if g.device.type == "cpu":
         return ref.cin_weight_grad_ref(g, x_k, x_0)
     dev = g.device
@@ -264,3 +282,68 @@ def cin_weight_grad(g: torch.Tensor, x_k: torch.Tensor,
     _build.check(rc, "cin_weight_grad")
     _build.count_launch("cin_weight_grad")
     return dw
+
+
+# ---------------------------------------------------------------------------
+# custom ops: B5's forward and weight gradient
+# ---------------------------------------------------------------------------
+
+@torch.library.custom_op("repro_torch::cin_layer", mutates_args=())
+def _layer_op(x_k: torch.Tensor, x_0: torch.Tensor,
+              w: torch.Tensor) -> torch.Tensor:
+    return _forward_impl(x_k, x_0, w)
+
+
+@torch.library.custom_op("repro_torch::cin_weight_grad", mutates_args=())
+def _wgrad_op(g: torch.Tensor, x_k: torch.Tensor,
+              x_0: torch.Tensor) -> torch.Tensor:
+    return _wgrad_impl(g, x_k, x_0)
+
+
+@_layer_op.register_fake
+def _(x_k, x_0, w):
+    return x_k.new_empty((x_k.shape[0], w.shape[0], x_k.shape[2]),
+                         dtype=torch.float32)
+
+
+@_wgrad_op.register_fake
+def _(g, x_k, x_0):
+    return g.new_empty((g.shape[1], x_k.shape[1], x_0.shape[1]),
+                       dtype=torch.float32)
+
+
+def _register_rules() -> None:
+    """FLOP formulas (2 a multiply-add of ``sum_{h,m}`` over every
+    [b, k, d], the same for the weight gradient's ``sum_{b,d}``) and
+    DTensor rules: a batch-sharded call is local (the weights
+    replicated; the weight gradient a partial sum over the batch's
+    axes)."""
+    from torch.utils.flop_counter import register_flop_formula
+
+    @register_flop_formula(torch.ops.repro_torch.cin_layer)
+    def _(x_k, x_0, w, *args, out_shape=None, **kwargs):
+        (B, H, D), M, K = x_k, x_0[1], w[0]
+        return 2 * B * K * H * M * D
+
+    @register_flop_formula(torch.ops.repro_torch.cin_weight_grad)
+    def _(g, x_k, x_0, *args, out_shape=None, **kwargs):
+        (B, K, D), H, M = g, x_k[1], x_0[1]
+        return 2 * B * K * H * M * D
+
+    if not torch.distributed.is_available():
+        return
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    @register_sharding(torch.ops.repro_torch.cin_layer.default)
+    def _(x_k, x_0, w):
+        return [([Replicate()], [Replicate()] * 3),
+                ([Shard(0)], [Shard(0), Shard(0), Replicate()])]
+
+    @register_sharding(torch.ops.repro_torch.cin_weight_grad.default)
+    def _(g, x_k, x_0):
+        return [([Replicate()], [Replicate()] * 3),
+                ([Partial()], [Shard(0)] * 3)]
+
+
+_register_rules()

@@ -26,6 +26,15 @@ reference's Pallas kernel has no backward.  dQ's sum over the key blocks
 is taken by reduce-adds in an order that varies from run to run.  On the
 CPU the two take their plain versions, ``ref.flash_attention_fwd_ref``
 and ``ref.flash_attention_bwd_ref``.
+
+Each entry is a ``torch.library.custom_op`` (``repro_torch::
+flash_attention``, ``flash_attention_lse``, ``flash_attention_bwd``) with
+a fake implementation (the output and lse shapes, so a fake tensor never
+materializes the plain version's ``[B, H, Sq, Sk]`` scores), a FLOP
+formula for ``torch.utils.flop_counter`` (the blocks the kernel computes:
+a causal call skips those above the diagonal) and a DTensor sharding
+rule: every input and output sharded alike over batch (dim 0) or heads
+(dim 1), or replicated, is a local call.
 """
 from __future__ import annotations
 
@@ -79,13 +88,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check(q, k, v, causal)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         return _FlashAttention.apply(q, k, v, causal)
-    return _forward(q, k, v, causal, with_lse=False)[0]
+    return _fwd_op(q, k, v, causal)
 
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        o, lse = _forward(q, k, v, causal, with_lse=True)
+        o, lse = _lse_op(q, k, v, causal)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal = causal
         return o
@@ -96,6 +105,40 @@ class _FlashAttention(torch.autograd.Function):
         dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, do.contiguous(),
                                          ctx.causal)
         return dq, dk, dv, None
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=())
+def _fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool) -> torch.Tensor:
+    return _forward(q, k, v, causal, with_lse=False)[0]
+
+
+@torch.library.custom_op("repro_torch::flash_attention_lse", mutates_args=())
+def _lse_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    return _forward(q, k, v, causal, with_lse=True)
+
+
+@torch.library.custom_op("repro_torch::flash_attention_bwd", mutates_args=())
+def _bwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+            causal: bool) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    return _backward(q, k, v, o, lse, do, causal)
+
+
+@_fwd_op.register_fake
+def _(q, k, v, causal):
+    return torch.empty_like(q)
+
+
+@_lse_op.register_fake
+def _(q, k, v, causal):
+    return torch.empty_like(q), q.new_empty(q.shape[:3], dtype=torch.float32)
+
+
+@_bwd_op.register_fake
+def _(q, k, v, o, lse, do, causal):
+    return torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
 
 def _forward(q, k, v, causal: bool, with_lse: bool):
@@ -131,6 +174,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
     128] (d padded), which the kernel zeroes itself."""
     if do.shape != o.shape or do.dtype != o.dtype or not do.is_contiguous():
         raise ValueError(f"do must be contiguous {tuple(o.shape)} {o.dtype}")
+    return _bwd_op(q, k, v, o, lse, do, causal)
+
+
+def _backward(q, k, v, o, lse, do, causal: bool):
     if q.device.type == "cpu":
         return ref.flash_attention_bwd_ref(q, k, v, o, lse, do, causal)
     B, H, Sq, d = q.shape
@@ -150,3 +197,68 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal: bool = True):
     _build.check(rc, "flash_attention_bwd")
     _build.count_launch("flash_attention_bwd")
     return dq, dk, dv
+
+
+def computed_fraction(sq: int, sk: int, block_q: int, block_k: int,
+                      causal: bool) -> float:
+    """The share of the ``[Sq, Sk]`` score blocks a kernel computes: all,
+    or under ``causal`` (Sq == Sk) those on and below the diagonal."""
+    if not causal:
+        return 1.0
+    nq, nk = -(-sq // block_q), -(-sk // block_k)
+    done = sum(min(nk, -(-((i + 1) * block_q) // block_k))
+               for i in range(nq))
+    return done / (nq * nk)
+
+
+def flops(q_shape, k_shape, causal: bool, backward: bool = False) -> int:
+    """Operations of one forward (2 products) or backward (5 products)
+    call, 2 a multiply-add, over the blocks it computes (forward blocks
+    of ``BLOCK`` x ``BLOCK``, backward tiles of ``BWD_QUERY_TILE`` x
+    ``BWD_KEY_BLOCK``)."""
+    B, H, Sq, d = q_shape
+    Sk = k_shape[2]
+    if backward:
+        frac = computed_fraction(Sq, Sk, BWD_QUERY_TILE, BWD_KEY_BLOCK,
+                                 causal)
+        return int(10 * B * H * Sq * Sk * d * frac)
+    frac = computed_fraction(Sq, Sk, BLOCK, BLOCK, causal)
+    return int(4 * B * H * Sq * Sk * d * frac)
+
+
+def _register_rules() -> None:
+    from torch.utils.flop_counter import register_flop_formula
+
+    @register_flop_formula([torch.ops.repro_torch.flash_attention,
+                            torch.ops.repro_torch.flash_attention_lse])
+    def _(q, k, v, causal, *args, out_shape=None, **kwargs):
+        return flops(q, k, causal)
+
+    @register_flop_formula(torch.ops.repro_torch.flash_attention_bwd)
+    def _(q, k, v, o, lse, do, causal, *args, out_shape=None, **kwargs):
+        return flops(q, k, causal, backward=True)
+
+    if not torch.distributed.is_available():
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import register_sharding
+
+    def alike(n_out: int, n_in: int):
+        # every tensor replicated, or all sharded over batch or heads
+        return [([p] * n_out, [p] * n_in + [None])
+                for p in (Replicate(), Shard(0), Shard(1))]
+
+    @register_sharding(torch.ops.repro_torch.flash_attention.default)
+    def _(q, k, v, causal):
+        return alike(1, 3)
+
+    @register_sharding(torch.ops.repro_torch.flash_attention_lse.default)
+    def _(q, k, v, causal):
+        return alike(2, 3)
+
+    @register_sharding(torch.ops.repro_torch.flash_attention_bwd.default)
+    def _(q, k, v, o, lse, do, causal):
+        return alike(3, 6)
+
+
+_register_rules()

@@ -45,10 +45,11 @@ def main(argv=None) -> int:
     from repro_torch.core.graph import resolve_device
     from repro_torch.runtime.train_loop import TrainConfig, Trainer
 
-    if args.arch not in list_archs():
+    models = [a for a in list_archs() if get_arch(a).kind != "sssp"]
+    if args.arch not in models:
         raise SystemExit(
             f"--arch {args.arch}: not a model arch of the port "
-            f"({', '.join(list_archs())}); the SSSP engine runs through "
+            f"({', '.join(models)}); the SSSP engine runs through "
             "repro_torch.sssp")
     spec = get_arch(args.arch)
     device = resolve_device(args.device)

@@ -174,7 +174,7 @@ def init_params(cfg: DimeNetConfig, generator: torch.Generator,
 
 def _rows(x: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
     """``x[min(idx, n - 1)]``: the reference's clamped gather."""
-    return x.index_select(0, torch.clamp(idx, max=n - 1))
+    return L.take(x, torch.clamp(idx, max=n - 1))
 
 
 def _bilinear(a: torch.Tensor, w: torch.Tensor, m_kj: torch.Tensor):

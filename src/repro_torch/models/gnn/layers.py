@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.graph import resolve_device
+from repro_torch.distributed.layout import is_dtensor, replicated_like
 
 INF = float("inf")
 
@@ -68,7 +69,39 @@ def gather_nodes(batch: GraphBatch, vals: torch.Tensor, idx: torch.Tensor,
     """``vals[idx]`` with one ``fill`` row appended at index ``n_nodes``
     (the sentinel)."""
     ext = torch.cat([vals, vals.new_full((1,) + vals.shape[1:], fill)])
-    return ext.index_select(0, idx)
+    return take(ext, idx)
+
+
+def take(vals: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``vals.index_select(0, idx)``; DTensors take ``_take_sharded``."""
+    if _sharded(vals, idx):
+        return _take_sharded(vals, idx)
+    return vals.index_select(0, idx)
+
+
+def _take_sharded(vals, idx):
+    """A gather of DTensors (``local_map``): ``vals`` whole along dim 0
+    (gathered first where it is sharded, as edge values read by triplet
+    indices are), each rank reads the rows its block of ``idx`` names;
+    the gradient of ``vals`` comes back as a partial sum over the axes
+    that shard ``idx``."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = (vals if _sharded(vals) else idx).device_mesh
+    if not _sharded(idx):
+        idx = replicated_like(idx, mesh)
+    if not _sharded(vals):
+        vals = replicated_like(vals, mesh)
+    edge = tuple(isinstance(p, Shard) and p.dim == 0 for p in idx.placements)
+    vp = tuple(Replicate() if e or isinstance(p, Shard) and p.dim == 0
+               else p for e, p in zip(edge, vals.placements))
+    ip = tuple(Shard(0) if e else Replicate() for e in edge)
+    out = tuple(Shard(0) if e else p for e, p in zip(edge, vp))
+    grad = tuple(Partial() if e else p for e, p in zip(edge, vp))
+    return local_map(lambda v, i: v.index_select(0, i),
+                     out_placements=(out,), in_placements=(vp, ip),
+                     in_grad_placements=(grad, ip), device_mesh=mesh,
+                     redistribute_inputs=True)(vals, idx)
 
 
 def _ids(batch: GraphBatch, at: str) -> torch.Tensor:
@@ -79,11 +112,53 @@ def segment_sum(vals: torch.Tensor, ids: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
     """``jax.ops.segment_sum`` for in-range ids: ``[num_segments, ...]``,
     0 where no id lands."""
-    out = vals.new_zeros((num_segments,) + vals.shape[1:])
-    return out.index_add(0, ids, vals)
+    if _sharded(vals, ids):
+        return _segment_sharded(vals, ids, num_segments, "sum", 0.0)
+    return _segment_plain(vals, ids, num_segments, "sum", 0.0)
 
 
 def _segment_reduce(vals, ids, num_segments, how: str, fill: float):
+    if _sharded(vals, ids):
+        return _segment_sharded(vals, ids, num_segments, how, fill)
+    return _segment_plain(vals, ids, num_segments, how, fill)
+
+
+def _sharded(*ts) -> bool:
+    return any(is_dtensor(t) for t in ts)
+
+
+def _segment_sharded(vals, ids, num_segments: int, how: str, fill: float):
+    """A segment reduction of DTensors (``local_map``): each rank reduces
+    its block of the edges (the edge arrays sharded over the data axes,
+    the distributed SSSP layout) into a full ``[num_segments, ...]``, a
+    partial sum, max or min over those axes that the next use combines.
+    A max or min of a partial sum takes the sum first."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = (vals if _sharded(vals) else ids).device_mesh
+    if not _sharded(ids):
+        ids = replicated_like(ids, mesh)
+    if not _sharded(vals):
+        vals = replicated_like(vals, mesh)
+    edge = tuple(isinstance(p, Shard) and p.dim == 0 for p in ids.placements)
+    vp = tuple(Shard(0) if e else
+               (Replicate() if isinstance(p, Shard) and p.dim == 0 or
+                how != "sum" and isinstance(p, Partial) else p)
+               for e, p in zip(edge, vals.placements))
+    ip = tuple(Shard(0) if e else Replicate() for e in edge)
+    op = {"sum": "sum", "amax": "max", "amin": "min"}[how]
+    out = tuple(Partial(op) if e else p for e, p in zip(edge, vp))
+
+    def local(v, i):
+        return _segment_plain(v, i, num_segments, how, fill)
+    return local_map(local, out_placements=(out,), in_placements=(vp, ip),
+                     device_mesh=mesh, redistribute_inputs=True)(vals, ids)
+
+
+def _segment_plain(vals, ids, num_segments, how: str, fill: float):
+    if how == "sum":
+        out = vals.new_zeros((num_segments,) + vals.shape[1:])
+        return out.index_add(0, ids, vals)
     out = vals.new_full((num_segments,) + vals.shape[1:], fill)
     idx = ids.view((-1,) + (1,) * (vals.dim() - 1)).expand_as(vals)
     return out.scatter_reduce(0, idx, vals, how, include_self=False)
@@ -121,10 +196,10 @@ def seg_softmax(batch: GraphBatch, edge_logits: torch.Tensor) -> torch.Tensor:
     """
     mx = _segment_reduce(edge_logits, batch.dst, batch.n_seg, "amax", -INF)
     mx = torch.where(torch.isfinite(mx), mx, 0.0)
-    ex = torch.exp(edge_logits - mx.index_select(0, batch.dst))
+    ex = torch.exp(edge_logits - take(mx, batch.dst))
     ex = torch.where((batch.dst < batch.n_nodes)[:, None], ex, 0.0)
     den = segment_sum(ex, batch.dst, batch.n_seg)
-    return ex / torch.clamp(den.index_select(0, batch.dst), min=1e-9)
+    return ex / torch.clamp(take(den, batch.dst), min=1e-9)
 
 
 def in_degrees(batch: GraphBatch) -> torch.Tensor:

@@ -191,7 +191,7 @@ def forward(params, b, cfg: NequIPConfig) -> torch.Tensor:
     dev = b.pos.device
     src = torch.clamp(b.src, max=N - 1)
     dst = torch.clamp(b.dst, max=N - 1)
-    vec = b.pos.index_select(0, dst) - b.pos.index_select(0, src)
+    vec = L.take(b.pos, dst) - L.take(b.pos, src)
     dist = torch.linalg.norm(vec + 1e-9, dim=-1)
     dist = torch.where(b.edge_mask, dist, cfg.cutoff)
     unit = vec / torch.clamp(dist, min=1e-9)[:, None]
@@ -216,7 +216,7 @@ def forward(params, b, cfg: NequIPConfig) -> torch.Tensor:
         agg = {l: torch.zeros((N, m, 2 * l + 1), dtype=dt, device=dev)
                for l in range(cfg.l_max + 1)}
         for p, (l1, l2, l3) in enumerate(paths):
-            hj = h[l1].index_select(0, src)               # [E, m, 2l1+1]
+            hj = L.take(h[l1], src)                       # [E, m, 2l1+1]
             # einsum("abc,ema,eb->emc", CG, hj, Y[l2]): CG with Y first
             k = torch.einsum("abc,eb->eac", cg[(l1, l2, l3)], Y[l2])
             msg = torch.bmm(hj, k)                        # [E, m, 2l3+1]

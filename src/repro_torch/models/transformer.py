@@ -19,18 +19,28 @@ One parameterised architecture covers the five LM configs
     config's drops.
   * ``decode_step`` writes the cache in place and keeps ``pos`` on the
     host, so a step reads nothing back from the card.
-  * ``ShardingHooks`` has no counterpart: on one card they are the
-    identity.  ``remat``, ``remat_policy`` and ``scan_unroll`` are kept so
-    the configs copy verbatim, and do nothing here.
-  * Training (``loss_fn``) is not ported: B6 has no backward.
+  * ``ShardingHooks`` redistribute a DTensor to the sharding rules'
+    layout at the reference's sites (``distributed/sharding.lm_hooks``);
+    on plain tensors every hook is the identity, so one card keeps its
+    bits.  Parameters and batches placed as DTensors by the rules run
+    the same code, DTensor inserting the collectives.  The query heads
+    stay ``[B, S, H, hd]`` up to B6 (a DTensor cannot split a sharded H
+    into (Hkv, G) when the model axis does not divide Hkv).  ``remat``,
+    ``remat_policy`` and ``scan_unroll`` are kept so the configs copy
+    verbatim, and do nothing here.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Callable
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.core.graph import resolve_device
+from repro_torch.distributed.layout import (hold_layout, is_dtensor,
+                                            local_block, whole_rows,
+                                            write_slot)
 from repro_torch.models import attention as attn_lib
 from repro_torch.models.common import (apply_rope, apply_rope_at,
                                        normal_init, rms_norm,
@@ -120,6 +130,28 @@ class LMConfig:
         return self.param_count() - nm * 3 * E * d * f + nm * 3 * K * d * f
 
 
+def _identity(x):
+    return x
+
+
+@dataclasses.dataclass
+class ShardingHooks:
+    """Layout constraints at the activation boundaries (the reference's);
+    each maps a tensor to itself or, under DTensor, to the rule's
+    placements."""
+    act: Callable = _identity            # [B, S, d] residual stream
+    moe_buf: Callable | None = None      # [B, E, C, d] dispatch buffer
+    logits: Callable = _identity         # [B, S, vocab]
+    cache: Callable = _identity          # KV cache entries
+    # sequence-parallel attention (archs whose head count doesn't divide
+    # the model axis): queries shard S over `model`, K/V replicate
+    attn_q: Callable | None = None       # [B, S, H, hd]
+    attn_kv: Callable | None = None      # [B, S, Hkv, hd]
+
+
+_NO_HOOKS = ShardingHooks()
+
+
 def _init_layer(generator, cfg: LMConfig, moe: bool, device) -> dict:
     d, hd, H, Hkv = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
     dt = cfg.dtype
@@ -165,29 +197,53 @@ def init_params(cfg: LMConfig, generator: torch.Generator,
             "layers": layers}
 
 
-def attention_qkv(lp: dict, x: torch.Tensor, cfg: LMConfig, rope):
-    """A layer's q [B, S, Hkv, G, hd], k and v [B, S, Hkv, hd] from the
+def attention_qkv(lp: dict, x: torch.Tensor, cfg: LMConfig, rope,
+                  hooks: ShardingHooks = _NO_HOOKS):
+    """A layer's q [B, S, H, hd], k and v [B, S, Hkv, hd] from the
     residual stream ``x`` [B, S, d], normed and roped; ``rope`` is the
     ``(cos, sin)`` tables of the S positions or, for one decode step, the
-    host integer position."""
+    host integer position.  Query head ``h`` is the reference's ``(h //
+    G, h % G)`` of ``[B, S, Hkv, G, hd]``."""
     B, S, _ = x.shape
     H, Hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    G = H // Hkv
-    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    q = (h @ lp["wq"]).reshape(B, S, Hkv, G, hd)
-    k = (h @ lp["wk"]).reshape(B, S, Hkv, hd)
-    v = (h @ lp["wv"]).reshape(B, S, Hkv, hd)
+    h = whole_rows(rms_norm(x, lp["attn_norm"], cfg.norm_eps))
+    q = _split_heads(h @ lp["wq"], H, hd)
+    k = _split_heads(h @ lp["wk"], Hkv, hd)
+    v = _split_heads(h @ lp["wv"], Hkv, hd)
     if cfg.qk_norm:
         q = rms_norm(q, lp["q_norm"], cfg.norm_eps)
         k = rms_norm(k, lp["k_norm"], cfg.norm_eps)
-    q = q.reshape(B, S, H, hd)
     if isinstance(rope, int):
         q = apply_rope_at(q, rope, hd, cfg.rope_theta)
         k = apply_rope_at(k, rope, hd, cfg.rope_theta)
     else:
         q = apply_rope(q, *rope)
         k = apply_rope(k, *rope)
-    return q.reshape(B, S, Hkv, G, hd), k, v
+    if hooks.attn_q is not None:
+        q = hooks.attn_q(q)
+    if hooks.attn_kv is not None:
+        k = hooks.attn_kv(k)
+        v = hooks.attn_kv(v)
+    return q, k, v
+
+
+def _split_heads(t: torch.Tensor, n: int, hd: int) -> torch.Tensor:
+    """[B, S, n*hd] -> [B, S, n, hd].  A DTensor sharded on the last dim
+    over more ranks than divide ``n`` is gathered first (a DTensor cannot
+    split its shards across heads)."""
+    B, S, _ = t.shape
+    if is_dtensor(t):
+        from torch.distributed.tensor import Replicate, Shard
+        mesh = t.device_mesh
+        k = 1
+        for md, p in enumerate(t.placements):
+            if isinstance(p, Shard) and p.dim == 2:
+                k *= mesh.size(md)
+        if n % k:
+            t = t.redistribute(mesh, tuple(
+                Replicate() if isinstance(p, Shard) and p.dim == 2 else p
+                for p in t.placements))
+    return t.reshape(B, S, n, hd)
 
 
 def _prompt_attention(q, k, v, cfg: LMConfig, i: int) -> torch.Tensor:
@@ -197,15 +253,48 @@ def _prompt_attention(q, k, v, cfg: LMConfig, i: int) -> torch.Tensor:
 
 
 def _ffn_block(lp: dict, x: torch.Tensor, cfg: LMConfig,
-               moe_cfg: MoEConfig | None):
+               moe_cfg: MoEConfig | None, hooks: ShardingHooks = _NO_HOOKS):
     h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
+    if "moe" not in lp:
+        h = whole_rows(h)
     if "moe" in lp:
-        return moe_ffn(lp["moe"], h, moe_cfg)
+        return moe_ffn(lp["moe"], h, moe_cfg, ep_constraint=hooks.moe_buf)
     return swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"]), {}
 
 
+def _embed(params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    if is_dtensor(params["embed"]):
+        return _embed_sharded(params["embed"], tokens)
+    return params["embed"][tokens]
+
+
+def _embed_sharded(table, tokens):
+    """Vocabulary-parallel lookup (``local_map``): each rank looks up the
+    tokens inside its block of rows, zeros elsewhere; the result is a
+    partial sum over the axes that shard the vocabulary (the act hook
+    sums it)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    tp = tuple(table.placements)
+    rows = tuple(Shard(0) if isinstance(p, Shard) and p.dim == 0 else
+                 Replicate() for p in tokens.placements)
+    out = tuple(Partial() if isinstance(p, Shard) else r
+                for p, r in zip(tp, rows))
+    lo, width = local_block(table, 0)
+
+    def lookup(tab, tok):
+        t = tok - lo
+        inside = (t >= 0) & (t < width)
+        e = F.embedding(t.clamp(0, width - 1), tab)
+        return torch.where(inside[..., None], e, torch.zeros((), dtype=e.dtype))
+    return local_map(lookup, out_placements=(out,), in_placements=(tp, rows),
+                     device_mesh=mesh, redistribute_inputs=True)(table, tokens)
+
+
 def _layers(params: dict, x: torch.Tensor, cfg: LMConfig, moe_cfg,
-            cache: "KVCache | None" = None):
+            cache: "KVCache | None" = None,
+            hooks: ShardingHooks = _NO_HOOKS):
     """The prompt pass: every layer over all S positions of ``x``, one B6
     launch each.  With ``cache``, each layer's k/v go into it as S decode
     steps would leave them.  Returns x and the summed aux losses."""
@@ -214,42 +303,97 @@ def _layers(params: dict, x: torch.Tensor, cfg: LMConfig, moe_cfg,
     lb = torch.zeros((), dtype=torch.float32, device=x.device)
     z = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, lp in enumerate(params["layers"]):
-        q, k, v = attention_qkv(lp, x, cfg, rope)
+        q, k, v = attention_qkv(lp, x, cfg, rope, hooks)
         if cache is not None:
             _fill(cache, i, k, v)
         o = _prompt_attention(q, k, v, cfg, i)
-        x = x + o.reshape(B, S, -1) @ lp["wo"]
-        f, aux = _ffn_block(lp, x, cfg, moe_cfg)
-        x = x + f
+        # each branch's output laid out as the residual stream before the
+        # sum (identities on one card; under DTensor the row-parallel
+        # product's reduction, and its adjoint in the backward)
+        o = hold_layout(o.reshape(B, S, -1))
+        x = hooks.act(x + hooks.act(o @ lp["wo"]))
+        f, aux = _ffn_block(lp, x, cfg, moe_cfg, hooks)
+        x = hooks.act(x + hooks.act(f))
         if aux:
             lb = lb + aux["moe_lb"]
             z = z + aux["moe_z"]
     return x, {"moe_lb": lb, "moe_z": z}
 
 
-def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig):
+def forward(params: dict, tokens: torch.Tensor, cfg: LMConfig,
+            hooks: ShardingHooks | None = None):
     """tokens [B, S] -> logits [B, S, vocab] (f32), aux loss dict."""
-    x = params["embed"][tokens]
-    x, aux = _layers(params, x, cfg, cfg.moe)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return (x @ params["lm_head"]).float(), aux
+    hooks = hooks or _NO_HOOKS
+    x = hooks.act(_embed(params, tokens))
+    x, aux = _layers(params, x, cfg, cfg.moe, hooks=hooks)
+    x = whole_rows(rms_norm(x, params["final_norm"], cfg.norm_eps))
+    return hooks.logits((x @ params["lm_head"]).float()), aux
 
 
 def loss_fn(params: dict, batch: dict, cfg: LMConfig,
-            z_weight: float = 1e-4):
+            hooks: ShardingHooks | None = None, z_weight: float = 1e-4):
     """``batch["tokens"]`` [B, S+1] -> (scalar loss, metrics): the mean
     next-token NLL (``lse - gold``) plus ``z_weight * mean(lse^2)`` plus
     the MoE aux losses, over ``forward`` at the config's training
     capacity (MoE drops included, as in the reference)."""
     tokens = batch["tokens"]
     inputs, targets = tokens[:, :-1], tokens[:, 1:]
-    logits, aux = forward(params, inputs, cfg)
-    lse = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, targets[..., None].long())[..., 0]
+    logits, aux = forward(params, inputs, cfg, hooks)
+    lse, gold = _lse_gold(logits, targets)
     nll = torch.mean(lse - gold)
     zloss = z_weight * torch.mean(lse ** 2)
     loss = nll + zloss + aux["moe_lb"] + aux["moe_z"]
     return loss, {"nll": nll, "zloss": zloss, **aux}
+
+
+def _lse_gold(logits: torch.Tensor, targets: torch.Tensor):
+    """Each position's log-sum-exp over the vocabulary and its target's
+    logit.  A DTensor ``logits`` sharded over the vocabulary takes
+    ``_lse_gold_sharded``."""
+    if is_dtensor(logits):
+        return _lse_gold_sharded(logits, targets)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, targets[..., None].long())[..., 0]
+    return lse, gold
+
+
+def _lse_gold_sharded(logits, targets):
+    """Vocabulary-parallel ``_lse_gold`` (``local_map``): each rank takes
+    the max, the sum of exponentials and the target's logit over its block
+    of the vocabulary; a max and two sums over the model axis combine
+    them, [B, S] values where the plain version would gather the whole
+    ``[B, S, vocab]`` logits."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = logits.device_mesh
+    vdim = logits.dim() - 1
+    lp = tuple(logits.placements)
+    rows = tuple(Replicate() if isinstance(p, Shard) and p.dim == vdim
+                 else p for p in lp)
+    lo, width = local_block(logits, vdim)
+
+    def part(op):
+        return tuple(Partial(op) if isinstance(p, Shard) and p.dim == vdim
+                     else p for p in lp)
+
+    def local_max(lg):
+        return lg.detach().amax(dim=-1)
+    m = local_map(local_max, out_placements=(part("max"),),
+                  in_placements=(lp,), device_mesh=mesh)(logits)
+    m = m.redistribute(mesh, rows)
+
+    def sums(lg, mx, tg):
+        se = torch.exp(lg - mx[..., None]).sum(-1)
+        t = tg.long() - lo
+        inside = (t >= 0) & (t < width)
+        g = lg.gather(-1, t.clamp(0, width - 1)[..., None])[..., 0]
+        return se, torch.where(inside, g, 0.0)
+    se, gold = local_map(sums, out_placements=(part("sum"), part("sum")),
+                         in_placements=(lp, rows, rows), device_mesh=mesh,
+                         redistribute_inputs=True)(logits, m, targets)
+    se = se.redistribute(mesh, rows)
+    gold = gold.redistribute(mesh, rows)
+    return m + torch.log(se), gold
 
 
 # ---------------------------------------------------------------------------
@@ -294,16 +438,17 @@ def _fill(cache: KVCache, i: int, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def decode_step(params: dict, cache: KVCache, token: torch.Tensor,
-                cfg: LMConfig):
+                cfg: LMConfig, hooks: ShardingHooks | None = None):
     """token [B] int -> logits [B, vocab] (f32) and the cache at pos + 1.
 
     The K/V tensors of ``cache`` are written in place (the returned cache
     shares them)."""
+    hooks = hooks or _NO_HOOKS
     B = token.shape[0]
-    x = params["embed"][token][:, None, :]        # [B, 1, d]
+    x = hooks.act(_embed(params, token)[:, None, :])   # [B, 1, d]
     pos = cache.pos
     for i, lp in enumerate(params["layers"]):
-        q, k, v = attention_qkv(lp, x, cfg, pos)
+        q, k, v = attention_qkv(lp, x, cfg, pos, hooks)
         s_l = cache.k[i].shape[1]
         if cfg.layer_is_global(i):
             if pos >= s_l:
@@ -314,15 +459,26 @@ def decode_step(params: dict, cache: KVCache, token: torch.Tensor,
             # local layers see the current chunk only (slots 0..pos % s_l)
             slot = pos % s_l
             length = slot + 1
-        cache.k[i][:, slot] = k[:, 0].to(cache.k[i].dtype)
-        cache.v[i][:, slot] = v[:, 0].to(cache.v[i].dtype)
-        o = attn_lib.decode_attention(q, cache.k[i], cache.v[i], length)
+        _write_slot(cache.k[i], slot, k[:, 0])
+        _write_slot(cache.v[i], slot, v[:, 0])
+        kc, vc = hooks.cache(cache.k[i]), hooks.cache(cache.v[i])
+        o = attn_lib.decode_attention(q, kc, vc, length)
         x = x + o.reshape(B, 1, -1) @ lp["wo"]
-        f, _ = _ffn_block(lp, x, cfg, cfg.moe)
+        f, _ = _ffn_block(lp, x, cfg, cfg.moe, hooks)
         x = x + f
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = (x @ params["lm_head"])[:, 0]
     return logits.float(), KVCache(k=cache.k, v=cache.v, pos=pos + 1)
+
+
+def _write_slot(cache: torch.Tensor, slot: int, val: torch.Tensor) -> None:
+    """``cache[:, slot] = val`` in place; a DTensor cache takes the value
+    in its own layout (the rank holding the slot writes it)."""
+    val = val.to(cache.dtype)
+    if is_dtensor(cache):
+        write_slot(cache, slot, val)
+    else:
+        cache[:, slot] = val
 
 
 def prefill(params: dict, tokens: torch.Tensor, cfg: LMConfig,

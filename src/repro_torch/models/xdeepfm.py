@@ -25,6 +25,8 @@ import torch.nn.functional as F
 
 from repro_torch.checkpoint.store import tree_leaves
 from repro_torch.core.graph import resolve_device
+from repro_torch.distributed.layout import (is_dtensor, local_block,
+                                            replicated_like)
 from repro_torch.kernels import ops as kops
 from repro_torch.models.gnn.layers import init_mlp, mlp
 
@@ -89,10 +91,46 @@ def embedding_bag(table: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
     per multi-hot field, -1 padding) -> [B, F, d]."""
     B, F_, V = indices.shape
     flat = indices.reshape(-1)
+    rows = _take_rows(table, flat)
+    return rows.reshape(B, F_, V, table.shape[1]).sum(2)
+
+
+def _take_rows(table: torch.Tensor, flat: torch.Tensor) -> torch.Tensor:
+    """``table[flat]`` with 0 where ``flat`` is negative (padding).  A
+    DTensor table row-sharded over model (table parallelism) takes
+    ``_take_rows_sharded``."""
+    if is_dtensor(table):
+        return _take_rows_sharded(table, flat)
     valid = flat >= 0
     rows = table.index_select(0, flat.clamp(min=0))
-    rows = torch.where(valid[:, None], rows, 0.0)
-    return rows.reshape(B, F_, V, table.shape[1]).sum(2)
+    return torch.where(valid.view((-1,) + (1,) * (rows.dim() - 1)), rows,
+                       0.0)
+
+
+def _take_rows_sharded(table, flat):
+    """Table-parallel lookup (``local_map``): each rank reads the ids that
+    fall in its block of rows, zeros elsewhere, a partial sum over the
+    axes that shard the table."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = table.device_mesh
+    if not is_dtensor(flat):
+        flat = replicated_like(flat, mesh)
+    tp = tuple(table.placements)
+    ip = tuple(Shard(0) if isinstance(p, Shard) and p.dim == 0 else
+               Replicate() for p in flat.placements)
+    out = tuple(Partial() if isinstance(t, Shard) and t.dim == 0 else i
+                for t, i in zip(tp, ip))
+    lo, width = local_block(table, 0)
+
+    def local(tab, ids):
+        t = ids.long() - lo
+        inside = (ids >= 0) & (t >= 0) & (t < width)
+        rows = tab.index_select(0, t.clamp(0, width - 1))
+        return torch.where(inside.view((-1,) + (1,) * (rows.dim() - 1)),
+                           rows, torch.zeros((), dtype=rows.dtype))
+    return local_map(local, out_placements=(out,), in_placements=(tp, ip),
+                     device_mesh=mesh, redistribute_inputs=True)(table, flat)
 
 
 def forward(params: dict, batch: dict) -> torch.Tensor:
@@ -103,9 +141,7 @@ def forward(params: dict, batch: dict) -> torch.Tensor:
 
     # linear term: sum of per-row weights
     flat = idx.reshape(-1)
-    lin_rows = torch.where(
-        flat >= 0, params["linear"].index_select(0, flat.clamp(min=0)), 0.0)
-    linear = lin_rows.reshape(B, -1).sum(-1)
+    linear = _take_rows(params["linear"], flat).reshape(B, -1).sum(-1)
 
     # CIN branch
     xk = x0

@@ -17,6 +17,14 @@ import torch
 from repro_torch.checkpoint.store import map_leaves, tree_leaves
 
 
+def host_scalars():
+    """A context in which the host's scalar math (the step count, the
+    schedule, the bias corrections) runs on real tensors even inside a
+    fake-tensor trace (the dry-run), so its values can still be read."""
+    from torch._subclasses.fake_tensor import unset_fake_temporarily
+    return unset_fake_temporarily()
+
+
 def adamw_init(params) -> dict:
     def zeros32(p):
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
@@ -32,11 +40,12 @@ def adamw_update(grads, state: dict, params, *, lr, b1: float = 0.9,
     """One AdamW step: returns ``(params, state)``, both updated in place
     (``state["step"]`` is replaced by ``step + 1``).  ``lr`` is a float or
     a 0-d tensor."""
-    step = state["step"] + 1
-    t = step.to(torch.float32)
-    bc1 = float(1.0 - b1 ** t)
-    bc2 = float(1.0 - b2 ** t)
-    lr = float(lr)
+    with host_scalars():
+        step = state["step"] + 1
+        t = step.to(torch.float32)
+        bc1 = float(1.0 - b1 ** t)
+        bc2 = float(1.0 - b2 ** t)
+        lr = float(lr)
     for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state["m"]),
                           tree_leaves(state["v"]), tree_leaves(params)):
         g32 = g.float()

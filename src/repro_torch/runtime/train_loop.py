@@ -27,6 +27,7 @@ from repro_torch.checkpoint.store import tree_leaves, tree_unflatten
 from repro_torch.distributed.fault import StepTimer, StepWatchdog
 from repro_torch.optim import (adamw_init, adamw_update, clip_by_global_norm,
                                warmup_cosine)
+from repro_torch.optim.adamw import host_scalars
 
 
 @dataclasses.dataclass
@@ -89,8 +90,9 @@ def make_train_step(loss_fn: Callable, tcfg: TrainConfig):
             loss, metrics, grads = _grads(loss_fn, params, leaves, batch)
         grads, gnorm = clip_by_global_norm(tree_unflatten(params, grads),
                                            tcfg.clip_norm)
-        lr = warmup_cosine(opt_state["step"], peak_lr=tcfg.peak_lr,
-                           warmup=tcfg.warmup, total=tcfg.total_steps)
+        with host_scalars():
+            lr = warmup_cosine(opt_state["step"], peak_lr=tcfg.peak_lr,
+                               warmup=tcfg.warmup, total=tcfg.total_steps)
         params, opt_state = adamw_update(grads, opt_state, params, lr=lr,
                                          weight_decay=tcfg.weight_decay)
         metrics = dict(metrics, loss=loss, grad_norm=gnorm, lr=lr)

@@ -57,7 +57,7 @@ def setup(rcfg, seed=0):
 def test_registry_lists_the_five_lm_archs():
     assert [a for a in list_archs() if get_arch(a).kind == "lm"] == ARCHS
     assert list_archs() == sorted(ARCHS + ["xdeepfm", "gat-cora", "pna",
-                                           "dimenet", "nequip"])
+                                           "dimenet", "nequip", "sssp"])
     for a in ARCHS:
         spec, ref = get_arch(a), ref_arch(a)
         assert (spec.name, spec.kind, spec.shapes, spec.notes) == \
