@@ -42,7 +42,8 @@ Phases, each failing the run (non-zero exit) if it fails:
     ``DynamicSolver``), ``update`` after 1,024 random edge changes (and
     on gnp a
     pure increase), ``resolve``, each held bitwise against a cold solve
-    of the mutated graph and against scipy, launches checked;
+    of the mutated graph (the grid's through the pallas route,
+    ``DYN_GRID_COLD``) and against scipy, launches checked;
     ``[p2p]``: ``LandmarkIndex`` on gnp (segment, 8 landmarks) and the
     grid (pallas, 4), batches of 8 seeded targeted pairs (64 on gnp
     through segment and pallas, 8 on the grid through frontier), every target
@@ -158,6 +159,17 @@ Phases, each failing the run (non-zero exit) if it fails:
     ``train_batch`` and sssp ``sssp_web_64m`` on the (16, 16) mesh and
     llama4-maverick ``train_4k`` on (2, 16, 16), one line a cell, a
     failed cell failing the run.
+12. ``[analysis]``: the program-contract gate on the card
+    (``analysis/check.main --device cuda``: the 25 solver routes on the
+    probe graph, each recorded under sync debug mode "error", all PASS,
+    the kernels launched a call of their entries; both mutants fail),
+    then ``ANALYSIS_ROUNDS`` rounds of each main-path route on
+    ``[main]``'s 2^20 graphs recorded and held to the contracts: a
+    round's dense passes, host reads, launches and ops;
+13. ``[examples]``: the six ``examples/*_torch.py`` beside the feature
+    example, each ``main`` in-process at the reference's default sizes
+    (train_lm's 100m preset for 20 steps, then resumed for 2), rc 0, B6
+    launched by serve_lm and its lse forward and backward by train_lm.
 
 Each phase prints its wall time.
 
@@ -1353,6 +1365,22 @@ def against_scipy(torch, res_dists, n, src, dst, w, sources, what):
         check(ok, f"{what}: distances from {s} disagree with scipy")
 
 
+def host_ell(ell):
+    """A host copy of an ``EllGraph`` (``ell_on``: back on a device): the
+    main path's ELL tables, 1 GiB each, wait for ``[analysis]`` off the
+    card."""
+    import dataclasses
+    return dataclasses.replace(ell, in_src=ell.in_src.cpu(),
+                               in_w=ell.in_w.cpu(), row_len=ell.row_len.cpu())
+
+
+def ell_on(ell, dev):
+    import dataclasses
+    return dataclasses.replace(ell, in_src=ell.in_src.to(dev),
+                               in_w=ell.in_w.to(dev),
+                               row_len=ell.row_len.to(dev))
+
+
 def main_path(torch, pt):
     sssp = pt["sssp"]
     dev = torch.device(DEVICE)
@@ -1366,6 +1394,9 @@ def main_path(torch, pt):
     s0 = batch[0]
     # a DynamicSolver: its tracked batch is [dynamic]'s grid baseline
     solver = pt["grid_solver"] = sssp.DynamicSolver(g, backend="auto")
+    # [analysis] lints three rounds of each main-path route on these
+    pt["main_graphs"], pt["main_ells"] = {"grid": g}, {}
+    pt["main_sources"] = {"grid": s0}
     log(f"[main] grid side 1024: n={n} e={g.e}, auto -> {solver.backend} "
         f"(cap {solver.frontier_cap})")
     check(solver.backend == "frontier", "auto did not route grid to "
@@ -1393,6 +1424,7 @@ def main_path(torch, pt):
         check(same(torch, res, grid_front), f"grid: {be} differs from "
                                             "frontier")
         if be == "pallas":
+            pt["main_ells"]["grid"] = host_ell(other.ell)
             check(lc["relax_ell"] > 0
                   and lc["masked_min_pair"] == res.rounds,
                   f"the grid pallas route launched B4 "
@@ -1408,11 +1440,13 @@ def main_path(torch, pt):
     batch = [int(s) for s in rng.choice(n, 8, replace=False)]
     s0 = batch[0]
     seg = sssp.Solver(g, backend="auto")
+    pt["main_graphs"]["gnp"], pt["main_sources"]["gnp"] = g, s0
     log(f"[main] gnp n={n} e={g.e}: auto -> {seg.backend}")
     check(seg.backend == "segment", "auto did not route gnp to segment")
     runs["gnp/segment"] = rs = solve_timed(torch, seg, "gnp segment", s0,
                                            batch)
     pal = sssp.Solver(g, backend="pallas")
+    pt["main_ells"]["gnp"] = host_ell(pal.ell)
     log(f"[main] gnp pallas: ELL n_pad={pal.ell.n_pad} "
         f"deg_pad={pal.ell.deg_pad}")
     runs["gnp/pallas"] = rp = solve_timed(torch, pal, "gnp pallas", s0,
@@ -1667,6 +1701,13 @@ def nonzero(lc) -> dict:
     return {k: v for k, v in lc.items() if v}
 
 
+# [dynamic]'s cold re-solve of the mutated grid, the bitwise reference of
+# the warm rows: the pallas route (bitwise the frontier route, which
+# [main] holds on the grid), ~30 s shorter than a frontier solve_batch(8)
+# of ~3,700 rounds; it pays for [analysis] and [examples]
+DYN_GRID_COLD = "pallas"
+
+
 def dynamic_phase(torch, pt):
     """Warm re-solves at n = 2^20 through ``DynamicSolver``: grid side
     1024 via "auto" (frontier), gnp 2^20 via "auto" (segment) and via
@@ -1674,7 +1715,8 @@ def dynamic_phase(torch, pt):
     on the grid the main path's, whose solver tracked it), ``update`` with 1,024 random edges rescaled by uniform[0.5, 2.0]
     (seed 11), then ``resolve``; on gnp also a pure increase of the same
     edges (x uniform[1.0, 2.0]).  Each resolved batch is held bitwise
-    (dist, fixed) against a cold ``Solver`` on the mutated graph and two
+    (dist, fixed) against a cold ``Solver`` on the mutated graph (on the
+    grid through ``DYN_GRID_COLD``, "pallas") and two
     sources against scipy on the mutated arrays; the frontier update
     must launch the fused frontier relax, a pallas update ``relax_ell``
     and one ``masked_min_pair`` a warm round.  Returns the launch counts
@@ -1726,7 +1768,8 @@ def dynamic_phase(torch, pt):
             stats, up_ms, lc = timed_run(torch, lambda: dyn.update(d))
             runs.append(lc)
             res, res_ms, _ = timed_run(torch, lambda: dyn.resolve(sources))
-            cold_solver = sssp.Solver(dyn.graph, backend=be)
+            cold_solver = sssp.Solver(
+                dyn.graph, backend=DYN_GRID_COLD if name == "grid" else be)
             cold, cold_ms, lc_cold = timed_run(
                 torch, lambda: cold_solver.solve_batch(sources))
             runs.append(lc_cold)
@@ -1734,7 +1777,8 @@ def dynamic_phase(torch, pt):
             log(f"  {what} update ({kind}, {d.k} edges of {e}, "
                 f"{stats['increased']} up / {stats['decreased']} down): "
                 f"{up_ms:.1f} ms against a cold solve_batch(8) of the "
-                f"mutated graph {cold_ms:.1f} ms; warm rounds {wr} "
+                f"mutated graph ({cold_solver.backend}) {cold_ms:.1f} ms; "
+                f"warm rounds {wr} "
                 f"({stats['warm_rounds']}) against cold "
                 f"{int(cold.rounds.max())}, sweeps {stats['sweeps']}, "
                 f"tainted {stats['tainted']}, host reads "
@@ -1776,8 +1820,9 @@ def dynamic_phase(torch, pt):
 
 
 # [p2p]'s landmarks on the grid (each is a forward and a reverse solve
-# of ~3,700 rounds, about 5 s on the pallas route)
-P2P_GRID_LANDMARKS = 8
+# of ~3,700 rounds, about 5 s on the pallas route): 4, cut from 8 with
+# DYN_GRID_COLD to pay for [analysis] and [examples]
+P2P_GRID_LANDMARKS = 4
 
 
 def p2p_phase(torch, pt, main_runs):
@@ -4190,13 +4235,7 @@ def gnn_parity(torch, arch, cfg, mod, batch_cpu):
 
 def gnn_example():
     """``examples/sssp_gnn_features_torch.py`` as a module."""
-    import importlib.util
-    path = ROOT / "examples" / "sssp_gnn_features_torch.py"
-    spec = importlib.util.spec_from_file_location("sssp_gnn_features_torch",
-                                                  path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
+    return example("sssp_gnn_features_torch")
 
 
 def gnn_feature_path(torch):
@@ -4565,6 +4604,212 @@ def dryrun_phase(torch, pt):
     return runs
 
 
+# ---------------------------------------------------------------------------
+# [analysis]: the program-contract gate on the card, and three rounds of
+# the main path's routes recorded at n = 2^20
+# ---------------------------------------------------------------------------
+
+# (graph, backend, the route whose contracts hold it) of the main path,
+# recorded for ANALYSIS_ROUNDS rounds each
+ANALYSIS_RUNS = (("grid", "auto", "frontier.cold"),
+                 ("grid", "segment", "segment.cold"),
+                 ("grid", "pallas", "pallas.cold"),
+                 ("gnp", "segment", "segment.cold"),
+                 ("gnp", "pallas", "pallas.cold"))
+ANALYSIS_ROUNDS = 3
+# launches a round of the kernels each route runs (PERF.md kernel table)
+ROUND_LAUNCHES = {"frontier.cold": {"frontier_relax_csr": 1},
+                  "segment.cold": {},
+                  "pallas.cold": {"relax_ell": 3, "masked_min_pair": 1}}
+
+
+def analysis_gate(torch):
+    """``analysis/check.main`` on the card: every route of the probe graph
+    (each recorded under sync debug mode "error"), then both mutants,
+    which must fail.  Returns the gate run's launch counts."""
+    import contextlib
+    import io
+    from repro_torch.analysis import check as gate
+    out_dir = ROOT / "build" / "analysis"
+    out = out_dir / "contracts_torch_cuda.json"
+    text = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(text):
+        rc, lc = counted(torch, lambda: gate.main(
+            ["--ci", "--device", DEVICE, "--no-ruff", "--out", str(out)]))
+    doc = json.loads(out.read_text())
+    log(f"  check --device {DEVICE}: rc {rc}, gate {doc['gate']}, "
+        f"{doc['summary']}, {time.perf_counter() - t0:.1f} s; launches "
+        f"{nonzero(lc)}")
+    for name, v in doc["routes"].items():
+        log(f"    {v['verdict']:4s} {name:23s} rounds {v['rounds']:3d}, "
+            f"dense {v['dense_passes']}/{v['dense_budget']}, reads "
+            f"{v['host_reads']}/{v['read_budget']}, ops {v['round_ops']}, "
+            f"programs {v['round_programs']}, launches {v['launches']}"
+            + "".join(f"; {x['rule']}: {x['detail']}"
+                      for x in v["violations"]))
+    check(rc == 0 and doc["gate"] == "pass"
+          and doc["summary"]["passed"] == doc["summary"]["routes"] == 25,
+          f"[analysis] the gate failed on the card: {text.getvalue()}")
+    for name, v in doc["routes"].items():
+        fam = name.split(".")[0]
+        need = {"ell": ("relax_ell", "masked_min_pair"),
+                "pallas": ("relax_ell", "masked_min_pair"),
+                "frontier": ("frontier_relax_csr",),
+                "fleet_frontier": ("frontier_relax_csr",)}.get(fam, ())
+        check(all(v["launches"].get(k, 0) > 0 for k in need),
+              f"[analysis] {name} launched {v['launches']}, wants {need}")
+    for kind, rule in (("host_sync", "forbid:aten._local_scalar_dense"),
+                       ("f64", "dtype:float64")):
+        mout = out_dir / f"contracts_torch_cuda.mutant-{kind}.json"
+        with contextlib.redirect_stdout(io.StringIO()):
+            mrc = gate.main(["--device", DEVICE, "--no-ruff",
+                             "--no-astlint", "--mutate", kind,
+                             "--out", str(mout)])
+        rules = [x["rule"] for v in json.loads(mout.read_text())[
+            "routes"].values() for x in v["violations"]]
+        log(f"  check --device {DEVICE} --mutate {kind}: rc {mrc}, "
+            f"{rules}")
+        check(mrc == 1 and rules == [rule],
+              f"[analysis] the {kind} mutant passed the gate on the card")
+    return lc
+
+
+def analysis_rounds(torch, pt):
+    """``ANALYSIS_ROUNDS`` rounds of each main-path route on ``[main]``'s
+    graphs, recorded under sync debug mode "error" and linted against
+    the route's contracts: a round's dense passes, host reads, launches
+    and op count, within the budgets, and the launches a round of
+    ``ROUND_LAUNCHES``.  Returns the runs' launch counts."""
+    import dataclasses
+    from repro_torch.analysis import check as gate
+    from repro_torch.analysis.op_lint import (Recorder, dense_pass_count,
+                                              lint_route)
+    sssp = pt["sssp"]
+    dev = torch.device(DEVICE)
+    gate._import_governed_modules()
+    cfg = dataclasses.replace(sssp.SP4_CONFIG, max_rounds=ANALYSIS_ROUNDS)
+    runs = []
+    with Recorder(sync_debug="error") as rec:
+        for name, be, route in ANALYSIS_RUNS:
+            g = pt["main_graphs"][name]
+            kw = (dict(ell=ell_on(pt["main_ells"][name], dev))
+                  if be == "pallas" else {})
+            sv = sssp.Solver(g, cfg, backend=be, device=dev, **kw)
+            check(route.startswith(sv.backend), f"[analysis] {name} {be} "
+                  f"routed to {sv.backend}")
+            dims = frozenset({sv.ell.deg_pad} if sv.ell is not None
+                             else {g.e_pad})
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with rec.record() as trace:
+                res = sv.solve(pt["main_sources"][name])
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            v = lint_route(route, trace, dense_dims=dims)
+            per = [(dense_pass_count(trace.round_sites(r.index), dims),
+                    r.host_reads, r.launches,
+                    len(trace.round_sites(r.index))) for r in trace.rounds]
+            log(f"  {name} {sv.backend} ({route}): {res.rounds} rounds "
+                f"recorded in {ms:.1f} ms, verdict {v.verdict}; per round "
+                "(dense passes, host reads, launches, ops): "
+                + "; ".join(f"({d}, {h}, {nonzero(lc)}, {o})"
+                            for d, h, lc, o in per)
+                + f"; budgets dense {v.dense_budget}, reads "
+                f"{v.read_budget}; op sequences {v.round_programs}"
+                + "".join(f"; {x.rule}: {x.detail}" for x in v.violations))
+            check(v.verdict == "PASS" and res.rounds == ANALYSIS_ROUNDS
+                  == len(trace.rounds),
+                  f"[analysis] {name} {sv.backend}: {v.verdict}, "
+                  f"{res.rounds} rounds")
+            want = ROUND_LAUNCHES[route]
+            check(all(nonzero(lc) == want for _, _, lc, _ in per),
+                  f"[analysis] {name} {sv.backend}: launches a round "
+                  f"{[lc for _, _, lc, _ in per]}, want {want}")
+            runs.append(dict(trace.launches))
+            del sv, kw
+    pt.pop("main_graphs"), pt.pop("main_ells")
+    torch.cuda.empty_cache()
+    return runs
+
+
+def analysis_phase(torch, pt):
+    """The gate on the card (``analysis_gate``), then the main path's
+    rounds at n = 2^20 (``analysis_rounds``).  Returns the launch counts
+    of both."""
+    lc = analysis_gate(torch)
+    return [lc] + analysis_rounds(torch, pt)
+
+
+# ---------------------------------------------------------------------------
+# [examples]: the port's examples on the card
+# ---------------------------------------------------------------------------
+
+# (example, argv, launch keys that must move): the reference examples'
+# default sizes; train_lm's 100m preset for 20 steps (its only cut),
+# checkpointed at the end into a temporary directory, then resumed for 2
+EXAMPLE_RUNS = (
+    ("quickstart_torch", [], ()),
+    ("sssp_dynamic_torch", [], ()),
+    ("sssp_p2p_torch", [], ()),
+    ("sssp_distributed_torch", ["--world", "2"], ()),
+    ("serve_lm_torch", [], ("flash_attention",)),
+    ("train_lm_torch", ["--steps", "20", "--ckpt-every", "20"],
+     ("flash_attention_lse", "flash_attention_bwd")),
+    ("train_lm_torch", ["--steps", "2", "--resume", "auto"],
+     ("flash_attention_lse", "flash_attention_bwd")),
+)
+
+
+def example(name: str):
+    """``examples/<name>.py`` as a module, registered under its name (the
+    distributed example's spawned ranks import it by that name)."""
+    import importlib.util
+    if name not in sys.modules:
+        spec = importlib.util.spec_from_file_location(
+            name, ROOT / "examples" / f"{name}.py")
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[name] = mod
+        spec.loader.exec_module(mod)
+    return sys.modules[name]
+
+
+def examples_phase(torch):
+    """Every ``examples/*_torch.py`` but the feature example (``[gnn]``
+    runs it) in-process on the card, its ``main`` at the reference's
+    default sizes: rc 0 (the examples' own checks against Dijkstra, a
+    cold solve and, distributed, one device bitwise), and B6's forward
+    launched by serve_lm, its lse forward and backward by train_lm.
+    Returns the launch counts of every run."""
+    import contextlib
+    import io
+    import tempfile
+    runs = []
+    with tempfile.TemporaryDirectory() as ckpt:
+        for name, argv, need in EXAMPLE_RUNS:
+            if name == "train_lm_torch":
+                argv = argv + ["--ckpt-dir", ckpt]
+            mod = example(name)
+            text = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(text):
+                rc, lc = counted(torch, lambda: mod.main(argv))
+            sec = time.perf_counter() - t0
+            lines = text.getvalue().strip().splitlines()
+            log(f"  {name} {' '.join(argv)}: rc {rc} in {sec:.1f} s; "
+                f"{lines[0]!r} .. {lines[-1]!r}; launches {nonzero(lc)}")
+            check(rc == 0 and DEVICE in text.getvalue()
+                  and all(lc[k] > 0 for k in need),
+                  f"[examples] {name}: rc {rc}, launches {nonzero(lc)}, "
+                  f"wants {need}: {lines}")
+            if "--resume" in argv:
+                check(any("resumed at step 20" in x for x in lines),
+                      f"[examples] {name} did not resume at step 20")
+            runs.append(lc)
+    torch.cuda.empty_cache()
+    return runs
+
+
 KERNELS = {
     "frontier_relax": (
         "src/repro_torch/kernels/csrc/frontier_relax.cu",
@@ -4694,6 +4939,11 @@ def main() -> int:
     runs_dry = phase("dryrun", "the dry-run's cells on fake meshes, the "
                      "work counter on real steps, sssp_web_64m for real",
                      lambda: dryrun_phase(torch, pt))
+    runs_analysis = phase("analysis", "the program-contract gate on the "
+                          "card, the main path's rounds at n = 2^20",
+                          lambda: analysis_phase(torch, pt))
+    runs_examples = phase("examples", "the port's examples on the card",
+                          lambda: examples_phase(torch))
     if args.profile:
         log("[profile] torch.profiler over the first rounds of each route")
         profile_phase(torch, pt)
@@ -4703,7 +4953,8 @@ def main() -> int:
     for lc in (launch_runs + runs_dyn + runs_p2p + runs_bidi + runs_fleet
                + runs_serve + runs_launch + runs_base + runs_dist
                + runs_legacy + [xd_launch, attn_launch] + runs_lm
-               + runs_train + runs_gnn + runs_dry):
+               + runs_train + runs_gnn + runs_dry + runs_analysis
+               + runs_examples):
         for k, v in lc.items():
             main_launch[k] += v
     kernels = []

@@ -43,6 +43,7 @@ from typing import Callable
 import torch
 import torch.distributed as dist
 
+from repro_torch.analysis.contracts import contract
 from repro_torch.core.graph import INF, CsrGraph, EllGraph, Graph, GraphStack
 from repro_torch.kernels import ops, ref
 
@@ -65,10 +66,24 @@ class Primitives:
     relax_frontier: Callable | None = None
 
 
+@contract(
+    "backend.segment",
+    routes=("segment.*",),
+    require=("aten.scatter_reduce.amin",),
+    dense_budget=8,
+    same_round_ops=True,
+    notes="The default backend relaxes by scatter_reduce_ 'amin' over "
+          "the dst-sorted edge list: every round must run the segment "
+          "min, cost at most 8 full-e_pad sweeps (the relax's two "
+          "gathers and scatter, inWeight_nf's gather and scatter, the "
+          "C-propagation relax's three; a warm round the same: its "
+          "taint sweeps run before the rounds) and issue one op "
+          "sequence whatever the source or round.")
 def segment_prims(g: Graph) -> Primitives:
     """Scatter-min (``scatter_reduce_`` "amin") over the dst-sorted edge
     list.  The reference used its library segment_min outside Pallas here,
     so this backend has no kernel of its own."""
+    g.src_l, g.dst_l    # the int64 index copies: made now, not in a round
 
     def relax(x, src_mask):
         ok = g.gather_src(src_mask, fill=False)
@@ -83,6 +98,27 @@ def segment_prims(g: Graph) -> Primitives:
                       masked_min_pair=ref.masked_min_pair_ref)
 
 
+@contract(
+    "backend.ell",
+    routes=("ell.*",),
+    require=("ops.relax_ell", "ops.masked_min_pair"),
+    dense_budget=3,
+    same_round_ops=True,
+    notes="The ELL backend is row-form: every reduction is one call of "
+          "the fused relax (B3: the relax, inWeight_nf and the "
+          "C-propagation, each one sweep of the [n_pad, deg_pad] table) "
+          "and both minima one masked-min pair (B4); no scatter at all.")
+@contract(
+    "backend.pallas",
+    routes=("pallas.*",),
+    require=("ops.relax_ell", "ops.masked_min_pair"),
+    dense_budget=3,
+    same_round_ops=True,
+    notes="'pallas' must actually route through the hand-written "
+          "kernels: its rounds call B3's and B4's entries, and on the "
+          "card each call launches its kernel (a plain fallback on a "
+          "CUDA tensor fails the launch check).  The port's 'ell' and "
+          "'pallas' are one backend; the device picks kernel or plain.")
 def ell_prims(g: Graph, ell: EllGraph) -> Primitives:
     """Dense padded in-neighbour (ELL) layout.
 
@@ -104,6 +140,19 @@ def ell_prims(g: Graph, ell: EllGraph) -> Primitives:
                       masked_min_pair=ops.masked_min_pair)
 
 
+@contract(
+    "backend.frontier",
+    routes=("frontier.*",),
+    require=("aten.cumsum", "ops.frontier_relax_b"),
+    dense_budget=3,
+    notes="The whole point of this backend is the compacted sparse "
+          "relax: every route (batched and warm included, the shared "
+          "batch frontier of engine._round_shared) must run the cumsum "
+          "compaction and B2's fused relax.  Only a round whose union "
+          "frontier overflowed the buffer takes the dense segment relax "
+          "(3 sweeps, the largest count a probe round reaches: "
+          "frontier.batched); inWeight_nf and the C-propagation are "
+          "incremental chunked walks with no dense rebuild.")
 def frontier_prims(g: Graph, csr: CsrGraph, cap: int) -> Primitives:
     """Sparse-frontier backend: compacted-buffer relax over the CSR view.
 
@@ -226,6 +275,17 @@ class CollectiveCounter:
                    for s in self._spans)
 
 
+@contract(
+    "backend.distributed",
+    routes=("distributed.*",),
+    require=("aten.scatter_reduce.amin", "dist.all_reduce_min"),
+    dense_budget=8,
+    same_round_ops=True,
+    notes="Rank-local segment relax + a MIN all-reduce combine "
+          "(CollectiveCounter.all_reduce_min, the reference's pmin): "
+          "both must run every round (a missing combine means the ranks "
+          "silently diverge), the sweeps those of the segment round on "
+          "the rank's block.")
 def distributed_prims(lg: Graph, group, counter: CollectiveCounter
                       ) -> Primitives:
     """Edge-sharded segment reductions: ``lg`` is this rank's block of the

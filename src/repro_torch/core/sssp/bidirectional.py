@@ -43,6 +43,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.analysis.contracts import contract
 from repro_torch.core.graph import (INF, Graph, HostGraph, resolve_device,
                                     stack_graphs)
 from repro_torch.core.sssp import backends
@@ -157,6 +158,16 @@ class _EdgeMins:
         return d
 
 
+@contract(
+    "bidi.pair_lanes",
+    routes=("bidi.*",),
+    require=("aten.scatter_reduce.amin",),
+    dense_budget=8,
+    same_round_ops=True,
+    notes="Forward and reverse searches run as TWO LANES of one stacked "
+          "segment round (one set of launches a round pair, not two); "
+          "the lanes share the round body, so the segment scatter-min "
+          "relax and the segment dense budget hold for the pair.")
 class BidirectionalSolver:
     """Bidirectional point-to-point solver over one graph.
 
@@ -170,6 +181,10 @@ class BidirectionalSolver:
     frontier_cap: the frontier buffer (default ``next_pow2(n)``); below n
              a lane whose frontier outgrows it relaxes densely that round.
     device:  where the solves run; CUDA unless given.
+
+    ``host_reads`` (a ``SyncCounter``) counts the solver's own reads
+    outside a solve: the refold's weights at every restack and a derived
+    reverse delta's rows.
     """
 
     def __init__(self, graph, cfg: SSSPConfig = SP4_CONFIG,
@@ -215,6 +230,9 @@ class BidirectionalSolver:
         self._rev_perm = np.empty(e, np.int64)
         self._rev_perm[order] = np.arange(e)
 
+        # the solver's own device reads outside a solve (the refold's
+        # weights at every restack, a derived reverse delta's rows)
+        self.host_reads = SyncCounter()
         self.frontier_cap = 0
         self._csrs = None
         if backend == "frontier":
@@ -227,7 +245,8 @@ class BidirectionalSolver:
     def _restack(self) -> None:
         """The lanes' stack and prims, and the refold's edge map, for the
         current graphs (read here, so a solve reads only its own state)."""
-        self._wmap.reweigh(self.graph.w[: self.graph.e].cpu().numpy())
+        self._wmap.reweigh(self.host_reads.read_numpy(
+            self.graph.w[: self.graph.e]))
         self._stack = stack_graphs([self.graph, self.rgraph])
         self._prims = (
             backends.lane_frontier_prims(self._stack, self._csrs,
@@ -309,9 +328,9 @@ class BidirectionalSolver:
     def reverse_delta(self, delta):
         """A forward-graph delta's updates as a delta on the transpose."""
         k = delta.k
-        idx = delta.edge_idx[:k].cpu().numpy().astype(np.int64)
+        idx = self.host_reads.read_numpy(delta.edge_idx[:k]).astype(np.int64)
         return make_delta(self.rgraph, self._rev_perm[idx],
-                          delta.new_w[:k].cpu().numpy())
+                          self.host_reads.read_numpy(delta.new_w[:k]))
 
     def update(self, delta, rdelta=None, *,
                warm=None) -> dict[tuple[int, int], BidiResult]:

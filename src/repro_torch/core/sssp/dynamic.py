@@ -30,6 +30,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from repro_torch.analysis.contracts import contract
 from repro_torch.core.graph import Graph
 from repro_torch.core.sssp.engine import (SP4_CONFIG, SSSPConfig,
                                           SSSPResult, SyncCounter,
@@ -187,6 +188,16 @@ def random_delta(g: Graph, k: int, *, seed: int = 0, lo: float = 0.5,
     return make_delta(g, idx, old * rng.uniform(lo, hi, k).astype(np.float32))
 
 
+@contract(
+    "warm.incremental_repair",
+    routes=("*.warm",),
+    require=("aten.index_select|aten.gather|ops.relax_ell"
+             "|ops.frontier_relax_b", "aten.amin|ops.masked_min_pair"),
+    notes="Every warm path taints the increased-and-tight cone, then "
+          "re-runs the round body for the tracked lanes.  Its rounds "
+          "must still run a relax gather and the masked "
+          "min-reduction: a warm path that lost them is returning stale "
+          "distances, not repairing them.")
 class DynamicSolver(Solver):
     """A Solver whose graph can change between solves.
 

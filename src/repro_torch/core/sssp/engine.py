@@ -53,6 +53,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.analysis.contracts import HOST_SYNC_OPS, contract
 from repro_torch.core.graph import INF, Graph, GraphStack
 from repro_torch.core.sssp import backends
 
@@ -514,6 +515,22 @@ def _solve_warm(g: Graph, cfg: SSSPConfig, prev_D: torch.Tensor,
 # Dense round
 # ---------------------------------------------------------------------------
 
+@contract(
+    "engine.round_body",
+    routes=("*",),
+    forbid=HOST_SYNC_OPS,
+    forbid_hot=("aten.sort", "aten.topk"),
+    read_budget={"*": 1, "frontier.*": 3, "fleet_frontier.*": 3},
+    notes="The round body reads the host only through SyncCounter: no "
+          "uncounted read (.item(), bool(), a boolean-mask index, a "
+          "device-to-host copy) anywhere in a route, no sort inside a "
+          "round (masked min-reductions only), 32-bit values "
+          "(allow_wide_dtypes defaults False).  A dense round reads the "
+          "host once (the loop's predicate); a frontier round three "
+          "times (the predicate with the frontier count, the two cone "
+          "counts, the inWeight_nf walk count), one more for each "
+          "C-propagation pass past the first (c_prop_iters 1 on every "
+          "probe route).")
 def _round(g: Graph | GraphStack, cfg: SSSPConfig, state: SSSPState,
            prims: backends.Primitives, warm: bool = False) -> SSSPState:
     """One bulk-synchronous dense round over ``[B, n]`` lanes — THE round

@@ -35,6 +35,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.analysis.contracts import contract
 from repro_torch.core.graph import (Graph, GraphStack, HostGraph,
                                     build_graph, resolve_device, round_up,
                                     stack_graphs)
@@ -74,7 +75,7 @@ class StackedDelta:
 
     def row(self, f: int) -> GraphDelta:
         """Member f's delta (weights were checked where it was built)."""
-        return GraphDelta(
+        return GraphDelta(  # astlint: ignore[raw-graphdelta]
             k=self.ks[f], edge_idx=self.edge_idx[f], new_w=self.new_w[f],
             ell_row=self.ell_row[f], ell_col=self.ell_col[f],
             csr_pos=None if self.csr_pos is None else self.csr_pos[f],
@@ -247,6 +248,26 @@ def _stack_states(states) -> dict:
             for name in ("D", "C", "fixed", "round", "fixed_by", "edges")}
 
 
+@contract(
+    "fleet.lockstep",
+    routes=("fleet.*",),
+    require=("aten.scatter_reduce.amin",),
+    dense_budget=8,
+    same_round_ops=True,
+    notes="F graphs solve in ONE loop: every [F * B] lane runs the "
+          "stacked segment round on the shape-unified edge layout, so "
+          "the segment scatter-min relax and dense budget hold for the "
+          "whole fleet: a budget regression here costs F-fold.")
+@contract(
+    "fleet.frontier",
+    routes=("fleet_frontier.*",),
+    require=("aten.cumsum", "ops.frontier_relax_b"),
+    dense_budget=3,
+    notes="backend='frontier' runs the members one after another through "
+          "the shared-batch-frontier round: each member's rounds must run "
+          "their cumsum union compaction and B2's fused relax, and only "
+          "an overflowed round may sweep e_pad (the budget is a "
+          "member's round, not F of them: the rounds are not fused).")
 class FleetSolver:
     """SSSP over a whole ``GraphFleet`` (see the module docstring).
 

@@ -24,6 +24,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.analysis.contracts import contract
 from repro_torch.core.graph import (CsrGraph, EllGraph, Graph, HostGraph,
                                     build_ell, build_graph, resolve_device)
 from repro_torch.core.sssp import backends, distributed
@@ -86,6 +87,16 @@ def _default_frontier_cap(n: int) -> int:
     return _next_pow2(min(max(n // 4, 32), 4096))
 
 
+@contract(
+    "solver.targeted_early_exit",
+    routes=("*.targeted",),
+    require_cond=("aten.gather",),
+    notes="A targeted solve's keep-going predicate (engine._cond) must "
+          "read fixed[target] and explored[target] (a gather): if it "
+          "disappears, targeted solves quietly run to full convergence "
+          "and the p2p speedup is gone with no output change to catch "
+          "it.  Untargeted solves pass no targets, so the port checks "
+          "the targeted routes only.")
 class Solver:
     """Multi-source SSSP over one graph.
 
@@ -110,6 +121,9 @@ class Solver:
               default group if initialized, else a world of one);
               ``rank``/``world`` report it and ``collectives`` counts its
               all-reduces.
+
+    ``solves`` counts the sources answered (the reference's facade
+    counts its traces instead).
     """
 
     def __init__(self, graph, cfg: SSSPConfig = SP4_CONFIG,
@@ -153,6 +167,7 @@ class Solver:
         self.frontier_cap = 0
         self.group, self.rank, self.world = None, 0, 1
         self.collectives = backends.CollectiveCounter()
+        self.solves = 0     # sources answered (padding lanes not counted)
 
         if backend == "distributed":
             self.group, self.rank, self.world = distributed.resolve_group(
@@ -225,6 +240,7 @@ class Solver:
         src = self._to_device(sources)
         tgt = None if targets is None else self._to_device(targets)
         state = _solve(self.graph, self.cfg, src, self.prims, sync, C0, tgt)
+        self.solves += b
         meta = [state.round[:b, None], state.fixed_by[:b]]
         if state.edges is not None:
             meta.append(state.edges[:b, None])

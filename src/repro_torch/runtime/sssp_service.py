@@ -36,8 +36,8 @@ cache probes, one for its scalar answers, one for its full vectors, one
 for the tightness telemetry of a targeted batch and one per 8 result
 rows of parent pointers.  The service's own reads go through a
 ``SyncCounter`` (``host_reads``), and the timers end with a synchronize
-of the solver's device, not with a copy.  The reference's ``@contract``
-metadata has no counterpart here.
+of the solver's device, not with a copy.  Its ``@contract`` names the
+solver routes it rides (``analysis/check.py`` checks the composition).
 """
 from __future__ import annotations
 
@@ -48,6 +48,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
+from repro_torch.analysis.contracts import contract
 from repro_torch.core.sssp.bidirectional import BidirectionalSolver
 from repro_torch.core.sssp.dynamic import DynamicSolver, GraphDelta
 from repro_torch.core.sssp.engine import (SP4_CONFIG, SSSPConfig,
@@ -76,6 +77,15 @@ class Query:
     done: bool = False
 
 
+@contract(
+    "service.rides_solver_routes",
+    routes=(),
+    composes=("segment.*", "*.targeted", "bidi.pair", "*.warm"),
+    notes="The service runs no rounds of its own: every wave the "
+          "planner emits runs a solver route (batched cold solves, "
+          "targeted waves, bidirectional pair solves, warm refresh after "
+          "apply_delta).  The gate checks composition: each of these "
+          "route families must exist and must not FAIL.")
 class SSSPService:
     """Continuous-batching SSSP server over one (mutable-weight) graph.
 
