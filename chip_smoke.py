@@ -25,9 +25,11 @@ Phases, each failing the run (non-zero exit) if it fails:
     at the ``[train]`` qwen3-32b layer in bf16 (each gradient within
     two bf16 steps of its largest magnitude) and at a smaller f32 shape
     (2e-3), against SDPA's backward; ``cin_weight_grad`` and the whole B5
-    backward (dx_0 split over 191 fields) at FULL widths, B 512 and
+    backward (dx_0 in one launch at H 200) at FULL widths, B 512 and
     65,536, within 3e-4 of float64 (of the largest magnitude), against
-    the einsum forms;
+    the einsum forms, and ``cin_layer`` timed at the input gradients'
+    shapes there (dx_k: H' 200, M' 39, K' 200; dx_0: H' 200, M' 200,
+    K' 39);
  4. SSSP main path at full size through ``repro_torch.sssp.Solver``:
     grid(side=1024) via "auto" (must route to frontier), gnp(2^20, 8) via
     "auto" (must route to segment) and via "pallas"; ``solve`` and an
@@ -326,20 +328,22 @@ def max_abs_err(torch, got, want) -> float:
     return float((g[fin] - w[fin]).abs().max()) if fin.any() else 0.0
 
 
-def record(rec, name, shape, ms, plain, lib, dev, b_ms, b_by, **extra):
+def record(rec, name, shape, ms, plain, lib, dev, b_ms, b_by, main=True,
+           **extra):
     """One timed shape of a kernel, appended to its ``shapes``: event and
     device times of the kernel, its plain version and the library call,
-    and the bound.  The kernel's own keys take the shape timed last, the
-    main path's (B = 8, CIN layer 2, bf16 attention at the shape of the
-    ``[lm]`` qwen3-32b prefill's layer)."""
+    and the bound.  The kernel's own keys take the main path's shape timed
+    last (B = 8, CIN layer 2, bf16 attention at the shape of the ``[lm]``
+    qwen3-32b prefill's layer); a shape with ``main`` False leaves them."""
     r = rec.setdefault(name, {"max_abs_err": 0.0, "shapes": []})
     r["shapes"].append(dict(
         shape=shape, ms=ms, device_ms=dev["kernel"], plain_ms=plain,
         plain_device_ms=dev["plain"], library_ms=lib,
         library_device_ms=dev.get("library"), bound_ms=b_ms, bound_by=b_by,
         **extra))
-    r.update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-             library_ms=lib)
+    if main:
+        r.update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                 library_ms=lib)
 
 
 # ---------------------------------------------------------------------------
@@ -815,17 +819,19 @@ def held_rec(torch, rec, name, got, want, rtol, atol, what):
 
 def timed_rec(torch, rec, name, what, err, kern, plain, lib, lib_name,
               nbytes, nops, ops_per_s=FP32_OPS_PER_S, peak_name="f32",
-              tc_ops_per_s=None, plain_reps=5):
+              tc_ops_per_s=None, plain_reps=5, main=True):
     """Event and device times of ``kern``, ``plain`` and ``lib`` (the
-    library call) and the bound, logged and recorded for ``name``.
+    library call; None where it is not measured, ``lib_name`` saying why)
+    and the bound, logged and recorded for ``name``.
     ``tc_ops_per_s``: the tensor-core rate of a split-f32 kernel, which
-    takes three products for each f32 product."""
+    takes three products for each f32 product; ``main``: the shape is the
+    main path's, whose numbers the kernel's own keys take."""
     ms = time_ms(torch, kern)
     pl = time_ms(torch, plain, reps=plain_reps, warmup=1)
-    lb = time_ms(torch, lib, reps=5, warmup=1)
+    lb = None if lib is None else time_ms(torch, lib, reps=5, warmup=1)
     dt = dict(kernel=device_ms(torch, kern),
               plain=device_ms(torch, plain, reps=plain_reps),
-              library=device_ms(torch, lib, reps=5))
+              library=None if lib is None else device_ms(torch, lib, reps=5))
     b_ms, b_by = bound(nbytes, nops, ops_per_s)
     extra = dict(max_abs_err=err)
     tc = ""
@@ -833,13 +839,15 @@ def timed_rec(torch, rec, name, what, err, kern, plain, lib, lib_name,
         extra["tensor_core_bound_ms"] = 3 * nops / tc_ops_per_s * 1e3
         tc = (f", 3-product tensor-core bound "
               f"{extra['tensor_core_bound_ms']:.4f} ms")
+    lib_ev, lib_dev = (("not measured",) * 2 if lib is None else
+                       (f"{lb:.4f}", f"{dt['library']:.4f}"))
     log(f"  {name} {what}: kernel {ms:.4f} ms, plain {pl:.4f} ms, "
-        f"{lib_name} {lb:.4f} ms (events); device {dt['kernel']:.4f} / "
-        f"{dt['plain']:.4f} / {dt['library']:.4f} ms; bound "
+        f"{lib_name} {lib_ev} (events); device {dt['kernel']:.4f} / "
+        f"{dt['plain']:.4f} / {lib_dev} ms; bound "
         f"{b_ms:.4f} ms ({b_by}, {peak_name} peak){tc}; "
         f"{nops / ms / 1e9:.2f} TFLOP/s; device time / {lib_name}'s "
         f"{dt['kernel'] / dt['library'] if dt['library'] else 0:.3f}")
-    record(rec, name, what, ms, pl, lb, dt, b_ms, b_by, **extra)
+    record(rec, name, what, ms, pl, lb, dt, b_ms, b_by, main=main, **extra)
 
 
 def model_kernel_phase(torch, rec):
@@ -1203,13 +1211,65 @@ def wgrad_fault(torch, up, xk, x0, exact, what):
                        f"fault ({what})")
 
 
+def cin_input_grad_rows(torch, rec, up, xk, x0, w):
+    """``cin_layer`` timed where B5's backward spends its time: the two
+    input-gradient launches of a FULL layer at H 200, dx_k =
+    cin_layer(g, x_0, w^T) (H' 200, M' 39, K' 200) and dx_0 =
+    cin_layer(g, x_k, w') in one launch (H' 200, M' 200, K' 39), beside
+    their f32 and TF32 x3 bounds, the plain version (in parts of the
+    batch of at most 2 GB of z) and the einsum where its [B, H', M', D]
+    intermediate fits in 8 GB (else "not measured", with its size).  The
+    rows join ``cin_layer``'s shapes; its own keys stay the main path's."""
+    from repro_torch.kernels import cin, ref
+    B, H, D = xk.shape
+    M, K = x0.shape[1], w.shape[0]
+    wt = w.permute(1, 0, 2).contiguous()          # [H, K, M]: dx_k
+    wp = w.permute(2, 0, 1).contiguous()          # [M, K, H]: dx_0
+    rows = slice(0, min(B, 256))
+    for gname, a, b, ww, kern in (
+            ("dx_k", up, x0, wt, lambda: cin._forward(up, x0, wt)),
+            ("dx_0", up, xk, wp, lambda: cin.input_grad_x0(up, xk, w))):
+        Hp, Mp, Kp = a.shape[1], b.shape[1], ww.shape[0]
+        what = (f"{gname} B={B} H'={Hp} M'={Mp} D={D} K'={Kp} "
+                f"(the backward of a FULL layer at H={H})")
+        want = ref.cin_layer_ref(a[rows].double(), b[rows].double(),
+                                 ww.double())
+        err = held_scaled(torch, rec, "cin_layer", kern()[rows], want,
+                          CIN_GRAD_TOL, f"{what}, rows 0..{rows.stop - 1} "
+                          "vs f64")
+        part = max(1, min(B, 2 ** 31 // (Hp * Mp * D * 4)))
+
+        def plain(a=a, b=b, ww=ww, part=part):
+            return torch.cat([ref.cin_layer_ref(a[i:i + part],
+                                                b[i:i + part], ww)
+                              for i in range(0, B, part)])
+        z_gb = B * Hp * Mp * D * 4 / 1e9
+        lib, lib_name = None, (f"einsum (not measured: its [B, H', M', D] "
+                               f"intermediate takes {z_gb:.1f} GB)")
+        if z_gb <= 8:
+            lib_name = "einsum"
+
+            def lib(a=a, b=b, ww=ww):
+                return torch.einsum("khm,bhd,bmd->bkd", ww, a, b)
+        nops = 2.0 * Kp * Hp * Mp * D * B
+        nbytes = 4 * (B * (Hp + Mp + Kp) * D + Kp * Hp * Mp)
+        timed_rec(torch, rec, "cin_layer", what + f" (plain in parts of "
+                  f"{part} samples)", err, kern, plain, lib, lib_name,
+                  nbytes, nops, tc_ops_per_s=TF32_OPS_PER_S, plain_reps=3,
+                  main=False)
+        del want
+        torch.cuda.empty_cache()
+
+
 def cin_bwd_check(torch, rec):
     """``cin_weight_grad`` and the whole B5 backward (input gradients
-    through the forward kernel with permuted weights, dx_0 split over 191
-    fields) at FULL widths, B 512 and 65,536, against float64, timed
-    against the einsum forms; ``cin_weight_grad`` run twice on the same
-    inputs at each shape and at the ragged ``CIN_RAGGED``, and its planted
-    fault (``wgrad_fault``) rejected at each FULL shape."""
+    through the forward kernel with permuted weights, dx_0 in one launch
+    up to ``cin.MAX_FIELDS`` fields) at FULL widths, B 512 and 65,536,
+    against float64, timed against the einsum forms; ``cin_weight_grad``
+    run twice on the same inputs at each shape and at the ragged
+    ``CIN_RAGGED``, and its planted fault (``wgrad_fault``) rejected at
+    each FULL shape; at H 200 ``cin_layer`` timed at the two
+    input-gradient launches (``cin_input_grad_rows``)."""
     from repro_torch.kernels import cin, ref
     g = torch.Generator(device=DEVICE).manual_seed(6)
     r = CIN_RAGGED
@@ -1240,8 +1300,8 @@ def cin_bwd_check(torch, rec):
             wgrad_fault(torch, up, xk, x0, exact, what)
             del exact
             # the whole backward through the autograd path: dx_k and dx_0
-            # (B5 with permuted weights, dx_0 in ceil(H / 191) calls) on
-            # the first rows against float64
+            # (B5 with permuted weights, dx_0 in ceil(H / MAX_FIELDS)
+            # calls) on the first rows against float64
             leaves = [t.clone().requires_grad_() for t in (xk, x0, w)]
             out = cin.cin_layer(*leaves)
             grads = torch.autograd.grad(out, leaves, up, retain_graph=True)
@@ -1294,7 +1354,10 @@ def cin_bwd_check(torch, rec):
                       plain_reps=3)
             rec["cin_weight_grad"]["shapes"][-1].update(
                 backward_ms=bwd_ms, autograd_einsum_ms=lib_bwd_ms)
-            del xk, x0, w, up, dw, leaves, out, grads
+            del dw, leaves, out, grads
+            if H == 200:
+                cin_input_grad_rows(torch, rec, up, xk, x0, w)
+            del xk, x0, w, up
             torch.cuda.empty_cache()
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -3821,6 +3884,12 @@ def xdeepfm_train_full(torch):
         for key, n in cin.backward_launches(h_prev, cfg.n_fields).items():
             want[key] += n
         h_prev = h
+    # FULL (39 fields, CIN 200-200-200): 3 forward launches, and 2
+    # cin_layer launches a layer of the backward (dx_k; dx_0 in one
+    # launch, H <= MAX_FIELDS), 1 cin_weight_grad
+    check(want == {"cin_layer": 9, "cin_weight_grad": 3},
+          f"[train] xdeepfm: the CIN launches the code implies, {want}, "
+          "are not FULL's 9 and 3")
     for lc in per_step:
         check({k: lc[k] for k in want} == want,
               f"[train] xdeepfm: CIN launches a step {nonzero(lc)}, want "

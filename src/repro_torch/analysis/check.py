@@ -6,9 +6,10 @@ Runs every program check over the port and writes
 
   1. imports the governed modules (their ``@contract`` decorators fill
      the registry), runs and records every solver route on the probe
-     graph (``routes.build_routes``) on ``--device`` (cpu or cuda; cuda
-     raises without a card, and runs every route under torch's sync
-     debug mode "error"), and verdicts each against the declared
+     graph (``routes.build_routes``) on ``--device`` (cuda, the default
+     as for every entry point of the port: it raises without a card, and
+     runs every route under torch's sync debug mode "error"; or cpu),
+     and verdicts each against the declared
      contracts (``op_lint``);
   2. audits the waiver list: an *expired* waiver lets its violation
      FAIL, a *stale* one (matches nothing: the gap was fixed) fails the
@@ -169,9 +170,9 @@ def main(argv: list[str] | None = None) -> int:
                     help="write contracts_torch.json and use the exit "
                          "status as the gate (also the default behavior; "
                          "the flag documents intent in workflows)")
-    ap.add_argument("--device", default="cpu",
-                    help="where the routes run: cpu or cuda (cuda raises "
-                         "without a card)")
+    ap.add_argument("--device", default="cuda",
+                    help="where the routes run: cuda (the default; raises "
+                         "without a card) or cpu")
     ap.add_argument("--out", default=None,
                     help="output JSON path (default "
                          "experiments/analysis/contracts_torch.json)")

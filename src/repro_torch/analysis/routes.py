@@ -57,14 +57,14 @@ def _delta_for(graph):
     return make_delta(graph, [0, 1, 2], [0.5, 0.6, 0.7])
 
 
-def build_routes(device="cpu", n: int = 48, e: int = 100, seed: int = 7,
+def build_routes(device="cuda", n: int = 48, e: int = 100, seed: int = 7,
                  frontier_cap: int = 16, batch: int = 4,
                  include: tuple[str, ...] = ("*",)) -> dict[str, Route]:
     """Run and record every solver route on the probe graph.
 
-    ``device`` is where the routes run (``"cuda"`` raises without a card,
-    as every entry point does; there every recorded run is under torch's
-    sync debug mode ``"error"``); ``include`` filters by fnmatch pattern
+    ``device`` is where the routes run (``"cuda"``, the default, raises
+    without a card, as every entry point does; there every recorded run
+    is under torch's sync debug mode ``"error"``); ``include`` filters by fnmatch pattern
     (the CLI's ``--routes``).
     """
     from repro_torch.core.graph import build_graph, resolve_device

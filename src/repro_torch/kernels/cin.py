@@ -6,10 +6,12 @@ without building ``z[b, h, m, d]``.  A CPU tensor goes to
 batch size (the reference padded B to its TPU block of 32).
 
 The kernel runs the layer as one GEMM over the flat reduction index
-``j = h * M + m``; ``plan`` splits its chunks into S parts when the batch
-gives too few output tiles to fill the card, and the wrapper allocates
-its scratch: W split into TF32 hi/lo, and the parts' partial sums.  One
-wrapper call is one counted launch, whatever S is.
+``j = h * M + m``, in stages of ``CHUNK`` values of j, on blocks of
+``COLS`` columns ``b * D + d`` by ``rows(K)`` rows k; ``plan`` splits the
+stages into S parts when the batch gives too few output tiles to fill
+the card, and the wrapper allocates its scratch: W split into TF32 hi/lo
+in the stages' order, and the parts' partial sums.  One wrapper call is
+one counted launch, whatever S is.
 
 Training: with grad mode on and an input that requires grad, the call
 is a ``torch.autograd.Function`` whose backward takes the input
@@ -20,8 +22,8 @@ CIN has no backward kernel, and these need none of their own):
     dx_0 = cin_layer(g, x_k, w'),    w'[m, k, h] = w[k, h, m]
 
 where in dx_0 the x_0 role has H fields, which may pass ``MAX_FIELDS``
-(CIN 200-200-200): that call splits over ranges of at most
-``MAX_FIELDS`` values of h and adds the parts, on every device.  The
+(221: CIN 200-200-200 takes one launch): that call splits over ranges of
+at most ``MAX_FIELDS`` values of h and adds the parts, on every device.  The
 weight gradient ``dw[k, h, m] = sum_{b, d} g x_k x_0`` is a kernel of its
 own, ``cin_weight_grad`` (``csrc/cin.cu``), with its own split plan
 (``wgrad_plan``) and launch key.  On the CPU each call takes its plain
@@ -42,17 +44,21 @@ import torch
 
 from repro_torch.kernels import _build, ref
 
-# The kernel's tiles (csrc/cin.cu: kNc, kKt, kJc; a test holds them
-# equal): columns b * D + d and rows k a block, values of j a chunk.
-COLS = 256
-ROWS = 40
+# The kernel's tiles (csrc/cin.cu: kFCols, kFRowsL, kFRowsS, kFJ,
+# kFFlush; a test holds them equal): columns b * D + d a block, rows k a
+# block (ROWS_SMALL when K <= ROWS_SMALL), values of j a stage, and k-steps
+# of 8 values of j between two flushes of the float32 accumulators into
+# their Kahan pairs.
+COLS = 128
+ROWS = 104
+ROWS_SMALL = 40
 CHUNK = 32
+FLUSH = 16
 SMS = 132           # streaming multiprocessors of an H100 SXM
-# fields the kernel's dynamic shared memory holds: x_0 of the block's
-# columns and two stages of x_k rows (2 a stage when M >= 32), 1,056
-# bytes a row, and two W tiles with their j tables (26,112 bytes), at
-# most 232,448 bytes a block on an H100
-MAX_FIELDS = 191
+# fields of x_0 the kernel's dynamic shared memory holds beside its two
+# stages (csrc/cin.cu: kFMaxFields): 512 bytes a field (the block's 128
+# columns), at most 232,448 bytes a block on an H100
+MAX_FIELDS = 221
 
 
 # cin_weight_grad's tiles (csrc/cin.cu: kGJt, kGKt, kGCols, kGFlush; a
@@ -70,8 +76,8 @@ WG_PREP = 2 * WG_KROWS * WG_COLS
 
 class Plan(NamedTuple):
     splits: int                  # S parts of the reduction
-    chunks_per_split: int        # chunks of CHUNK values of j a part
-    w_prep_shape: tuple          # W split into TF32 hi/lo, fragment order
+    chunks_per_split: int        # stages of CHUNK values of j a part
+    w_prep_shape: tuple          # W split into TF32 hi/lo, the stages' order
     partial_shape: tuple | None  # f32 partial sums [S, K, B*D], if S > 1
 
 
@@ -92,14 +98,20 @@ def _split(n_chunks: int, tiles: int, sms: int) -> tuple[int, int]:
     return max(1, math.ceil(n_chunks / cps)), cps
 
 
+def rows(K: int) -> int:
+    """Rows k a block of the forward kernel: the wgmma's N."""
+    return ROWS_SMALL if K <= ROWS_SMALL else ROWS
+
+
 def plan(B: int, H: int, M: int, D: int, K: int, sms: int = SMS) -> Plan:
     """How the forward kernel splits a layer's reduction (over j = h * M
-    + m) into S parts (``_split``), and the shapes of its float32
-    scratch."""
+    + m, in stages of ``CHUNK``) into S parts (``_split``), and the shapes
+    of its float32 scratch: W^T split into hi and lo, one tile of
+    ``rows(K)`` rows by ``CHUNK`` a row tile and stage."""
     n_chunks = math.ceil(H * M / CHUNK)
-    n_ktiles = math.ceil(K / ROWS)
+    n_ktiles = math.ceil(K / rows(K))
     splits, cps = _split(n_chunks, math.ceil(B * D / COLS) * n_ktiles, sms)
-    return Plan(splits, cps, (n_ktiles * ROWS, n_chunks * 2 * CHUNK),
+    return Plan(splits, cps, (n_ktiles, n_chunks, 2 * rows(K) * CHUNK),
                 (splits, K, B * D) if splits > 1 else None)
 
 
@@ -125,7 +137,8 @@ def wgrad_prep_floats(B: int, D: int, K: int) -> int:
 def backward_launches(H: int, M: int) -> dict:
     """The launches of one layer's backward whose inputs all require
     grad: dx_k (one ``cin_layer``), dx_0 (one ``cin_layer`` a part of at
-    most ``MAX_FIELDS`` values of h) and dw (one ``cin_weight_grad``)."""
+    most ``MAX_FIELDS`` values of h: one at H = 200) and dw (one
+    ``cin_weight_grad``)."""
     return {"cin_layer": 1 + math.ceil(H / MAX_FIELDS),
             "cin_weight_grad": 1}
 

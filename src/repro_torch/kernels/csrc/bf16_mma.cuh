@@ -1,11 +1,15 @@
-// bf16 tensor-core helpers shared by the attention kernels
-// (flash_attn.cu, flash_attn_bwd.cu): ldmatrix, mma.sync m16n8k16 with f32
-// accumulators, cp.async, exp2, bf16 packing and hi/lo splitting.
+// bf16 helpers shared by the attention kernels (flash_attn.cu,
+// flash_attn_bwd.cu): ldmatrix and mma.sync m16n8k16 with f32
+// accumulators (the f32 forward), exp2, bf16 packing and hi/lo splitting,
+// and the producer warpgroups' fill of a 128-byte swizzled tile where TMA
+// does not apply.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -41,20 +45,6 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// 16 bytes global -> shared, zero-filled when !full
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(full ? 16 : 0));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
-}
-
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -80,6 +70,78 @@ __device__ __forceinline__ void split(float x0, float x1, uint32_t& hi,
 __device__ __forceinline__ float ld(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float ld(const __nv_bfloat16* p) {
   return __bfloat162float(p[0]);
+}
+
+// 8 values of a row from column c0, 0 past d; 16-byte loads when vec
+__device__ __forceinline__ void load8(const float* row, int c0, int d,
+                                      int vec, float (&x)[8]) {
+  if (vec && c0 + 8 <= d) {
+    const float4 a = __ldg(reinterpret_cast<const float4*>(row + c0));
+    const float4 b = __ldg(reinterpret_cast<const float4*>(row + c0 + 4));
+    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
+    x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e) x[e] = c0 + e < d ? __ldg(row + c0 + e) : 0.f;
+  }
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* row, int c0, int d,
+                                      int vec, float (&x)[8]) {
+  if (vec && c0 + 8 <= d) {
+    const uint4 u = __ldg(reinterpret_cast<const uint4*>(row + c0));
+    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float2 f =
+          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[e]));
+      x[2 * e] = f.x;
+      x[2 * e + 1] = f.y;
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      x[e] = c0 + e < d ? __bfloat162float(row[c0 + e]) : 0.f;
+  }
+}
+
+// rows x DMAX of src (row stride d) into the 128-byte swizzled regions of
+// a tile (region r holds columns 64 r .. 64 r + 63 of every row), as bf16
+// hi and, when SPLIT, lo; the producer warpgroup's 128 threads (tid)
+template <int DMAX, bool SPLIT, typename T>
+__device__ __forceinline__ void fill_tile(uint8_t* hi, uint8_t* lo,
+                                          const T* src, int rows, int d,
+                                          int vec, int tid) {
+  constexpr int CH = DMAX / 8;             // 16-byte chunks a row
+  constexpr int NB = SPLIT ? 4 : 1;        // chunks a thread loads at once
+  for (int i0 = tid; i0 < rows * CH; i0 += 128 * NB) {
+    float x[NB][8];
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      const int i = i0 + 128 * b;
+      if (i < rows * CH)
+        load8(src + (long long)(i / CH) * d, (i % CH) * 8, d, vec, x[b]);
+    }
+#pragma unroll
+    for (int b = 0; b < NB; ++b) {
+      const int i = i0 + 128 * b;
+      if (i >= rows * CH) break;
+      const int r = i / CH;
+      const int ch = i % CH;
+      const uint32_t off = (ch / 8) * rows * 128 + hopper::sw128(r, ch % 8);
+      uint4 h, l;
+      if constexpr (SPLIT) {
+        split(x[b][0], x[b][1], h.x, l.x);
+        split(x[b][2], x[b][3], h.y, l.y);
+        split(x[b][4], x[b][5], h.z, l.z);
+        split(x[b][6], x[b][7], h.w, l.w);
+        *reinterpret_cast<uint4*>(lo + off) = l;
+      } else {
+        h = make_uint4(pack(x[b][0], x[b][1]), pack(x[b][2], x[b][3]),
+                       pack(x[b][4], x[b][5]), pack(x[b][6], x[b][7]));
+      }
+      *reinterpret_cast<uint4*>(hi + off) = h;
+    }
+  }
 }
 
 }  // namespace

@@ -1,6 +1,7 @@
 // xDeepFM CIN layer on Hopper's tensor cores, sm_90a, plain C interface.
 //
-// Replaces the Pallas TPU kernel cin_layer (src/repro/kernels/cin.py):
+// Replaces the Pallas TPU kernel cin_layer (src/repro/kernels/cin.py:42,
+// pallas_call at :51):
 //
 //     out[b, k, d] = sum_{h, m} W[k, h, m] * x_k[b, h, d] * x_0[b, m, d]
 //
@@ -10,56 +11,64 @@
 //
 // The layer as one GEMM.  Over the flattened columns c = b * D + d (N =
 // B * D of them, so D = 10 needs no padding) and the flat reduction index
-// j = h * M + m (padded only at its end, to a multiple of kJc: 7,800 ->
-// 7,808 at H = 200, M = 39), out[k, c] = sum_j W[k, j] Z[j, c] with
-// Z[j, c] = x_k[b, h, d] * x_0[b, m, d].  The kernel computes its
-// transpose out^T = Z^T W^T on mma.sync.m16n8k8 TF32 tensor cores: Z^T is
-// the A operand (16 columns a tile), W^T the B operand (8 rows k a tile),
-// so K = 200 is 5 block tiles of 40 rows with no padding rows.
-//
-// - A block owns kNc = 256 columns and kKt = 40 rows k; each of its 16
-//   warps owns 16 columns by the 40 rows.  W is what every column reads,
-//   so the tile is wide in columns: a chunk of kJc = 32 values of j costs
-//   the block 40 x 32 values of W.  A small first kernel splits W (see
-//   Precision) into the order the B fragments read it, so that a warp
-//   takes the hi and lo parts of both values of a fragment in one 16-byte
-//   shared load.
-// - Z is never stored, not even in shared memory: x_0 of the block's
-//   columns, [M, 256], stays in shared memory, the chunk's few rows of
-//   x_k, [(31 / M) + 2, 256], come in by cp.async with the chunk's W
-//   slice and a table of each j's x_0 and x_k rows (all double-buffered),
-//   and each A fragment is formed in registers as x_k * x_0.
-// - Precision: split f32 as 3xTF32.  Each operand x is split when its
-//   fragment is formed into hi = tf32(x) and lo = tf32(x - hi) (11 + 11
-//   significant bits) and each product is lo.hi + hi.lo + hi.hi; the
-//   dropped lo.lo and the rounding of lo are ~2^-22 of the product.  bf16
-//   hi/lo (~16 bits) would be ~60x further off, past the 1e-4 that a
-//   7,800-term output of |out| ~ 100-500 allows.
-// - Summation: every k-step (8 values of j) the three products of a
-//   16 x 8 tile are taken in a fresh f32 fragment, which is added into a
-//   compensated (Kahan) f32 pair per output, in registers; the pair's
-//   compensation is the fragment's initial value, so the flush costs 3
-//   adds.  The tensor cores' accumulation truncates, so longer runs of
-//   f32 fragment sums cost accuracy (2 and 4 k-steps a flush were
-//   measurably further off); the pair keeps the long sum near f64 (a
-//   single f32 chain over 7,800 terms was 3.18e-4 off at B = 65,536).
-// - Latency: 16 warps an SM (20 outputs a thread), and no phase in
-//   which the warps leave the tensor cores idle to form operands.  A
-//   first design with 10 warps, 64 x 200 tiles and Z formed in shared
-//   memory kept the tensor cores busy well under half as much.
-// - Occupancy at small B: the wrapper splits the chunks of j into S
-//   parts (S blocks for each output tile) so that the grid fills the
-//   card's waves; each part writes its f32 partial [S, K, N] and a
-//   second kernel sums them in a fixed order in f64.  No atomics.
+// j = h * M + m (padded only at its end, to a multiple of kFJ), out[k, c]
+// = sum_j W[k, j] Z[j, c] with Z[j, c] = x_k[b, h, d] * x_0[b, m, d].  The
+// kernel computes its transpose out^T[c, k] = sum_j Z^T[c, j] W^T[j, k].
 //
 // Bound on an H100: operations, 2*K*H*M*D*B FLOPs (31 MFLOP a sample at
 // H = K = 200, M = 39, D = 10) at 67 TFLOP/s f32, or three times that at
 // 495 TFLOP/s TF32 on the tensor cores; bytes 4*(H + M + K)*D a sample.
+// Every output sums H * M products, so the tensor cores, not the bytes,
+// are the limit: the design keeps them fed from operands that are formed
+// and split once, by warps that do nothing else.
 //
-// The layer's backward (kernels/cin.py) takes its input gradients from
-// this kernel with permuted weights, and its weight gradient from
-// cin_weight_grad below, which replaces no TPU kernel (the reference's
-// CIN has no backward; training xDeepFM on the card needs one):
+// Design (cin_kernel: warp-specialised, wgmma tf32, the machinery of
+// cin_weight_grad below with the roles of its operands exchanged):
+// - A block owns kFCols = 128 columns by N rows k (N = kFRowsS = 40 when
+//   K <= 40, as for dx_0 = cin_layer(g, x_k, w') with K' = M = 39; else
+//   kFRowsL = 104, so K = 200 is two row tiles).  Each of its two consumer
+//   warpgroups owns 64 of the columns: out^T's [64, N] tile is
+//   wgmma.m64nNk8 with Z^T as A and W^T as B, both from shared memory,
+//   K-major (j contiguous), 128-byte swizzled.
+// - W^T is the same for every block of a row tile, so prep_w_kernel splits
+//   w once into TF32 hi and lo, in the byte order of the stage tiles, into
+//   scratch from the caller; a stage's W^T (2 * N * 128 bytes) lands in
+//   shared memory by one bulk copy on the stage's mbarrier.
+// - Two producer warpgroups fill a ring of 3 stages (2 where the third
+//   does not fit beside x_0: M past 105 at N = 104), kFJ = 32 values of
+//   j a stage: thread p of each owns column p of the block and 16 of the
+//   stage's values of j.  They keep the block's x_0 (M values a column) in
+//   shared memory for the whole call, which bounds M
+//   (kFMaxFields), reads the two x_k values a stage touches (M >= 32) from
+//   device memory a stage ahead, forms the stage's 32 values of Z (their
+//   x_0 loads independent of each other), splits each once into TF32
+//   hi and lo and stores both into the swizzled tile.  So every Z value is
+//   formed and split once a row tile, every W value once a call, and the
+//   consumers only multiply, keeping one stage's products in flight while
+//   they issue the next.  setmaxnreg moves registers from the producers
+//   (96 a thread) to the consumers (160: the 52 accumulators of N = 104
+//   and their Kahan sums).
+// - Precision: split f32 as 3xTF32.  Each operand x is split into hi =
+//   tf32(x) and lo = tf32(x - hi) (11 + 11 significant bits) and each
+//   product is lo.hi + hi.lo + hi.hi into a f32 accumulator; the dropped
+//   lo.lo and the rounding of lo are ~2^-22 of the product.  The
+//   accumulator is added into a compensated (Kahan) f32 pair every
+//   kFFlush stages (16 k-steps of 8 values of j), in registers; the pair's
+//   compensation is the accumulator's next start, so a flush costs 3 adds.
+//   The CPU tests emulate this sum at the layer's and the input
+//   gradients' lengths of j (tests/test_torch_split_precision.py).
+// - Occupancy at small B: the wrapper splits the stages into S parts (S
+//   blocks for each output tile) so that the grid fills the card's waves;
+//   each part writes its f32 partial [S, K, N] and a second kernel sums
+//   them in a fixed order in f64.  No atomics.  Blocks of one part and row
+//   tile are adjacent in the grid, so they run together and find W^T's
+//   stages in L2.
+//
+// The layer's backward (kernels/cin.py) takes its input gradients from this
+// kernel with permuted weights (dx_0 at H = 200 in one launch), and its
+// weight gradient from cin_weight_grad below, which replaces no TPU kernel
+// (the reference's CIN has no backward; training xDeepFM on the card needs
+// one):
 //
 //     dW[k, h, m] = sum_{b, d} g[b, k, d] * x_k[b, h, d] * x_0[b, m, d]
 //
@@ -70,7 +79,7 @@
 // 67 TFLOP/s f32, or three TF32 products each at 495 TFLOP/s on the
 // tensor cores; bytes 4*(H + M + K)*D a sample plus 4*K*H*M.
 //
-// Design (warp-specialised, wgmma tf32):
+// Design (cin_wgrad_kernel: warp-specialised, wgmma tf32):
 // - A block owns kGJt = 64 values of j by kGKt = 208 rows k (K = 200 in
 //   one tile; more K in more tiles).  Its two consumer warpgroups share
 //   one Z tile and split the rows k, 104 each: dW^T's [64, 104] tile is
@@ -108,15 +117,6 @@
 
 namespace {
 
-constexpr int kWarps = 16;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kNi = 5;                     // 8-row tiles a warp
-constexpr int kNc = 16 * kWarps;           // 256 columns a block
-constexpr int kKt = 8 * kNi;               // 40 rows k a block
-constexpr int kJc = 32;                    // values of j a chunk
-constexpr int kXs = kNc + 8;               // x_0, x_k row stride (= 8 mod 32)
-constexpr int kWs = 2 * kJc + 16;          // W row stride (80 = 16 mod 32)
-constexpr int kWTile = kKt * kWs;          // floats of a W tile
 constexpr int kMaxSmem = 232448;           // bytes a block can opt into
 
 __device__ __forceinline__ uint32_t tf32(float x) {
@@ -129,201 +129,235 @@ __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   lo = tf32(x - __uint_as_float(hi));
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-// 4 bytes global -> shared, zero-filled when !full
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool full) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(smem_addr(dst)), "l"(src), "r"(full ? 4 : 0));
-}
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(smem_addr(dst)), "l"(src));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-__device__ __forceinline__ void cp_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
+// ---- the forward, cin_kernel -------------------------------------------
+constexpr int kFCols = 128;                // columns c = b * D + d a block
+constexpr int kFJ = 32;                    // values of j a stage
+constexpr int kFRowsS = 40;                // rows k a block when K <= 40
+constexpr int kFRowsL = 104;               // and when K > 40
+constexpr int kFStages = 2;                // stages in the ring, at least
+constexpr int kFStagesMax = 3;             // where the shared memory holds them
+constexpr int kFFlush = 4;                 // stages a Kahan flush
+constexpr int kFProd = 256;                // producer threads (2 warpgroups)
+constexpr int kFThreads = kFProd + 256;    // and 2 consumer warpgroups
+constexpr int kFProdRegs = 96;             // registers a producer thread keeps
+constexpr int kFConsRegs = 160;            // and a consumer thread takes
+constexpr int kFZ = kFCols * 128;          // bytes of a Z^T part [128][32]
+constexpr int kFStageL = 2 * kFZ + 2 * kFRowsL * 128;  // a stage at N = 104
+constexpr int kFFixed = kFStages * kFStageL + 2 * kFStages * 8;
+// the fields of x_0 the rest of the shared memory holds: 512 bytes a field
+constexpr int kFMaxFields = (kMaxSmem - kFFixed) / (kFCols * 4);
 
-// d = a b + c: a 16x8 (row), b 8x8 (col), TF32; c, d 16x8 f32
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1,
-                                    const float (&c)[4]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%10, %11, %12, %13};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
-        "f"(c[0]), "f"(c[1]), "f"(c[2]), "f"(c[3]));
-}
-
-// W in the order the B fragments read it: for row k of [Kpad] and j =
-// 32 ch + 8 kk + t (t < 4), the float4 at ((k * n_chunks + ch) * 4 + kk)
-// * 4 + t holds hi(W[k, j]), hi(W[k, j + 4]), lo(W[k, j]), lo(W[k, j +
-// 4]); zero outside [K, H * M].
+// w split once into TF32 hi and lo in the order of the W^T stage tiles:
+// for row tile kt and stage st, the 2 * N * 128 bytes of wp from ((kt *
+// n_stages + st) * 2 * N * 128) hold the hi and then the lo part of
+// W^T[st * kFJ + c][k0 + r] = w[k0 + r, j] at sw128(r, c / 4) + (c % 4) * 4
+// (0 past K or H * M), the bytes a stage's bulk copy lands in shared memory
+template <int N>
 __global__ void prep_w_kernel(const float* __restrict__ w,
-                              float4* __restrict__ wp, int K, int HM,
-                              int Kpad, int n_chunks) {
-  const long long n = (long long)Kpad * n_chunks * 16;
+                              float* __restrict__ wp, int K, int HM,
+                              int n_stages, int n_ktiles) {
+  const long long n = (long long)n_ktiles * n_stages * N * kFJ;
   for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x;
        i < n; i += (long long)gridDim.x * blockDim.x) {
-    const int k = (int)(i / (n_chunks * 16));
-    const int r = (int)(i % (n_chunks * 16));
-    const int j = (r / 16) * kJc + ((r / 4) % 4) * 8 + r % 4;
-    const float x0 = k < K && j < HM ? w[(long long)k * HM + j] : 0.f;
-    const float x1 = k < K && j + 4 < HM ? w[(long long)k * HM + j + 4] : 0.f;
-    uint32_t h0, l0, h1, l1;
-    split(x0, h0, l0);
-    split(x1, h1, l1);
-    wp[i] = make_float4(__uint_as_float(h0), __uint_as_float(h1),
-                        __uint_as_float(l0), __uint_as_float(l1));
+    const int c = (int)(i % kFJ);
+    const int r = (int)((i / kFJ) % N);
+    const long long t = i / ((long long)kFJ * N);        // kt * stages + st
+    const long long st = t % n_stages;
+    const int k = (int)(t / n_stages) * N + r;
+    const long long j = st * kFJ + c;
+    const float x = k < K && j < HM ? w[(long long)k * HM + j] : 0.f;
+    uint32_t hi, lo;
+    split(x, hi, lo);
+    float* tile = wp + t * (2 * N * kFJ);
+    const uint32_t off = (hopper::sw128(r, c >> 2) + (c & 3) * 4) / 4;
+    tile[off] = __uint_as_float(hi);
+    tile[N * kFJ + off] = __uint_as_float(lo);
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-cin_kernel(const float* __restrict__ xk, const float* __restrict__ x0,
-           const float4* __restrict__ wp, float* __restrict__ out,
-           float* __restrict__ part, int B, int H, int M, int D, int K,
-           int n_ctiles, int n_ktiles, int cps, int n_chunks, int nh) {
-  extern __shared__ __align__(16) float smem[];
-  float* wst = smem;                       // [2][kKt][kWs]
-  int2* jtab = reinterpret_cast<int2*>(wst + 2 * kWTile);   // [2][kJc]
-  float* x0s = reinterpret_cast<float*>(jtab + 2 * kJc);    // [M][kXs]
-  float* xks = x0s + M * kXs;              // [2][nh][kXs]
+template <int N>
+__device__ __forceinline__ void wgmma_tf32(float (&d)[N / 2], uint64_t da,
+                                           uint64_t db) {
+  if constexpr (N == kFRowsS)
+    hopper::wgmma_tf32_n40(d, da, db, 1);
+  else
+    hopper::wgmma_tf32_n104(d, da, db, 1);
+}
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int g = lane >> 2;
-  const int t = lane & 3;
+template <int N, int STAGES>
+__global__ void __launch_bounds__(kFThreads, 1)
+cin_kernel(const float* __restrict__ xk, const float* __restrict__ x0,
+           const float* __restrict__ wp, float* __restrict__ out,
+           float* __restrict__ part, int B, int H, int M, int D, int K,
+           int n_ctiles, int n_ktiles, int cps, int n_stages) {
+  using namespace hopper;
+  constexpr int WT = N * 128;              // bytes of a W^T part [N][32]
+  constexpr int STAGE = 2 * kFZ + 2 * WT;  // Z^T hi, lo; W^T hi, lo
+  // 1024-byte aligned as declared (a launch that breaks that traps): the
+  // third stage at M' = 200 has no room for a slack to align it by hand
+  extern __shared__ __align__(1024) uint8_t sm[];
+  float* x0s = reinterpret_cast<float*>(sm + STAGES * STAGE);  // [M][128]
+  uint64_t* full = reinterpret_cast<uint64_t*>(x0s + M * kFCols);
+  uint64_t* empty = full + STAGES;
+
   int bid = blockIdx.x;
-  const int ct = bid % n_ctiles;
-  bid /= n_ctiles;
+  const int ct = bid % n_ctiles;           // columns fastest: a part's
+  bid /= n_ctiles;                         // blocks run together
   const int kt = bid % n_ktiles;
   const int s = bid / n_ktiles;            // part of the reduction
-  const long long c0 = (long long)ct * kNc;
-  const int k0 = kt * kKt;
-  const long long N = (long long)B * D;
-  const int ch0 = s * cps;
-  const int n_ch = min(cps, n_chunks - ch0);
-  const float inv_m = 1.f / M;
-  auto hm = [&](int j, int& h, int& m) {   // j = h * M + m, j < 2^22
-    h = (int)((float)j * inv_m);
-    m = j - h * M;
-    if (m < 0) { --h; m += M; } else if (m >= M) { ++h; m -= M; }
-  };
+  const long long c0 = (long long)ct * kFCols;
+  const int k0 = kt * N;
+  const long long NC = (long long)B * D;
+  const int st0 = s * cps;
+  const int n_part = min(cps, n_stages - st0);   // stages of the part
 
-  // x_0 of the block's columns; this thread stages column tid % kNc
-  const int sc = tid % kNc;
-  const long long c_st = c0 + sc;
-  const bool col_in = c_st < N;
-  const long long b_st = col_in ? c_st / D : 0;
-  const long long d_st = col_in ? c_st % D : 0;
-  for (int m = tid / kNc; m < M; m += kThreads / kNc)
-    cp_async4(x0s + m * kXs + sc, x0 + (b_st * M + m) * D + d_st, col_in);
-  cp_commit();
-  // chunk ch into stage st: its W slice, x_k rows h0 .. h0 + nh, and
-  // for each j of the chunk the offsets of its x_0 and x_k rows
-  auto stage = [&](int ch, int st) {
-    float* ws = wst + st * kWTile;
-    for (int i = tid; i < kKt * (2 * kJc / 4); i += kThreads) {
-      const int r = i / (2 * kJc / 4);
-      const int q = i % (2 * kJc / 4);
-      cp_async16(ws + r * kWs + 4 * q,
-                 wp + ((long long)(k0 + r) * n_chunks + ch) * (kJc / 2) + q);
+  if (threadIdx.x == 0) {
+    if (saddr(sm) % 1024 != 0) __trap();
+    for (int i = 0; i < STAGES; ++i) {
+      mbar_init(&full[i], kFProd);
+      mbar_init(&empty[i], 256);
     }
-    const int h0 = ch * kJc / M;
-    float* xs = xks + st * nh * kXs;
-    for (int r = tid / kNc; r < nh; r += kThreads / kNc) {
-      const bool in = col_in && h0 + r < H;
-      cp_async4(xs + r * kXs + sc,
-                xk + (in ? (b_st * H + h0 + r) * D + d_st : 0), in);
-    }
-    cp_commit();
-    if (tid < kJc) {
-      int h, m;
-      hm(ch * kJc + tid, h, m);
-      jtab[st * kJc + tid] = make_int2(m * kXs, (h - h0) * kXs);
-    }
-  };
-
-  // Kahan pair per output: the sum is tot + ncm (ncm = -compensation)
-  float tot[kNi][4], ncm[kNi][4];
-#pragma unroll
-  for (int b = 0; b < kNi; ++b)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) tot[b][e] = ncm[b][e] = 0.f;
-
-  if (n_ch > 0) stage(ch0, 0);
-  cp_wait_all();
+    mbar_init_fence();
+  }
   __syncthreads();
 
-  const int ca = warp * 16 + g;            // A rows (columns c): ca, ca + 8
-  for (int ch = 0; ch < n_ch; ++ch) {
-    const int st = ch & 1;
-    if (ch + 1 < n_ch) stage(ch0 + ch + 1, st ^ 1);
-    const float* ws = wst + st * kWTile;
-    const float* xs = xks + st * nh * kXs + ca;
-    const float* x0c = x0s + ca;
-#pragma unroll
-    for (int kk = 0; kk < kJc / 8; ++kk) {
-      // A = Z^T: a0 (col ca, j t), a1 (ca + 8, t), a2 (ca, t + 4),
-      // a3 (ca + 8, t + 4), Z = x_k * x_0
-      uint32_t ah[4], al[4];
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const int2 o = jtab[st * kJc + kk * 8 + t + 4 * q];
-        split(xs[o.y] * x0c[o.x], ah[2 * q], al[2 * q]);
-        split(xs[o.y + 8] * x0c[o.x + 8], ah[2 * q + 1], al[2 * q + 1]);
+  constexpr int NP = kFProd / 128;
+  if (threadIdx.x < kFProd) {
+    // ---- producers: thread p of warpgroup pw owns column c0 + p, row p of
+    // the Z^T tiles, and the stage's values of j from ZJ pw; thread 0
+    // brings the stage's W^T (hi and lo, split by prep_w_kernel) with one
+    // bulk copy
+    constexpr int ZJ = kFJ / NP;           // values of j a thread a stage
+    reg_dealloc<kFProdRegs>();
+    const int pw = threadIdx.x / 128;
+    const int p = threadIdx.x % 128;
+    const long long c = c0 + p;
+    const bool live = c < NC;
+    const long long b = live ? c / D : 0;
+    const int dd = live ? (int)(c - b * D) : 0;
+    const float* cxk = xk + b * H * D + dd;
+    const float* cx0 = x0 + b * M * D + dd;
+    for (int m = pw; m < M; m += NP)       // read back by every producer
+      x0s[m * kFCols + p] = live ? __ldg(cx0 + (long long)m * D) : 0.f;
+    named_sync(1, kFProd);
+    auto xk_at = [&](int h) {
+      return live && h < H ? __ldg(cxk + (long long)h * D) : 0.f;
+    };
+    const long long j0 = (long long)st0 * kFJ + ZJ * pw;
+    int h = (int)(j0 / M);                 // (h, m) of the thread's first j
+    int m = (int)(j0 - (long long)h * M);
+    float xa = xk_at(h), xb = xk_at(h + 1);   // x_k at h and at h + 1
+    const float* wsrc = wp + ((long long)kt * n_stages + st0) * (2 * WT / 4);
+    for (int n = 0; n < n_part; ++n) {
+      const int st = n % STAGES;
+      // the next stage's first (h, m) and its x_k, loaded a stage ahead
+      int hn = h, mn = m + kFJ;
+      while (mn >= M) {
+        mn -= M;
+        ++hn;
       }
-      // B = W^T: b0 (j t, row g), b1 (j t + 4, row g), hi and lo in one
-      // float4
-      uint32_t bh[kNi][2], bl[kNi][2];
+      const float xna = xk_at(hn), xnb = xk_at(hn + 1);
+      float z[ZJ];                         // 0 past H * M: x_k is 0 there
+      if (M >= ZJ) {                       // at most one new h: loads apart
 #pragma unroll
-      for (int b = 0; b < kNi; ++b) {
-        const float4 v = *reinterpret_cast<const float4*>(
-            ws + (b * 8 + g) * kWs + kk * 16 + t * 4);
-        bh[b][0] = __float_as_uint(v.x);
-        bh[b][1] = __float_as_uint(v.y);
-        bl[b][0] = __float_as_uint(v.z);
-        bl[b][1] = __float_as_uint(v.w);
-      }
-      // the three products of every tile in turn, dependent ones kNi apart
-      float f[kNi][4];
-#pragma unroll
-      for (int b = 0; b < kNi; ++b)
-        mma(f[b], al, bh[b][0], bh[b][1], ncm[b]);
-#pragma unroll
-      for (int b = 0; b < kNi; ++b) mma(f[b], ah, bl[b][0], bl[b][1], f[b]);
-#pragma unroll
-      for (int b = 0; b < kNi; ++b) mma(f[b], ah, bh[b][0], bh[b][1], f[b]);
-#pragma unroll
-      for (int b = 0; b < kNi; ++b)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {      // Kahan, f = term - compensation
-          const float u = tot[b][e] + f[b][e];
-          ncm[b][e] = f[b][e] - (u - tot[b][e]);
-          tot[b][e] = u;
+        for (int i = 0; i < ZJ; ++i) {
+          const bool next = m + i >= M;
+          z[i] = (next ? xb : xa) * x0s[(m + i - (next ? M : 0)) * kFCols + p];
         }
+      } else {
+        int hh = h, mm = m;
+        float xc = xa;
+#pragma unroll
+        for (int i = 0; i < ZJ; ++i) {
+          z[i] = xc * x0s[mm * kFCols + p];
+          if (++mm == M) {
+            mm = 0;
+            xc = xk_at(++hh);
+          }
+        }
+      }
+      h = hn;
+      m = mn;
+      xa = xna;
+      xb = xnb;
+      if (n >= STAGES) mbar_wait(&empty[st], ((n / STAGES) - 1) & 1);
+      uint8_t* zs = sm + st * STAGE;
+      if (threadIdx.x == 0) {
+        mbar_expect_tx(&full[st], 2 * WT);
+        bulk_load(zs + 2 * kFZ, wsrc + (long long)n * (2 * WT / 4), 2 * WT,
+                  &full[st]);
+      }
+#pragma unroll
+      for (int q = 0; q < ZJ / 4; ++q) {
+        uint4 hi, lo;
+        split(z[4 * q], hi.x, lo.x);
+        split(z[4 * q + 1], hi.y, lo.y);
+        split(z[4 * q + 2], hi.z, lo.z);
+        split(z[4 * q + 3], hi.w, lo.w);
+        const uint32_t off = sw128(p, ZJ / 4 * pw + q);
+        *reinterpret_cast<uint4*>(zs + off) = hi;
+        *reinterpret_cast<uint4*>(zs + kFZ + off) = lo;
+      }
+      fence_async_shared();
+      mbar_arrive(&full[st]);
     }
-    cp_wait_all();
-    __syncthreads();
+    return;
+  }
+
+  // ---- consumers: warpgroup cw takes columns c0 + 64 cw .. + 63; one
+  // group of products stays in flight while the next stage is issued
+  reg_alloc<kFConsRegs>();
+  const int cw = threadIdx.x / 128 - NP;
+  const int tw = threadIdx.x % 128;
+  const int ww = tw / 32;
+  const int lane = tw % 32;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  // the Kahan pairs: sums in tot, compensations in acc, which the next
+  // flush window starts from
+  float acc[N / 2], tot[N / 2];
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) acc[i] = tot[i] = 0.f;
+  const uint64_t z_a = desc(sm + cw * 64 * 128, 16, 1024);
+  const uint64_t w_b = desc(sm + 2 * kFZ, 16, 1024);
+  for (int n0 = 0; n0 < n_part; n0 += kFFlush) {
+    const int n1 = min(n0 + kFFlush, n_part);
+    for (int n = n0; n < n1; ++n) {
+      const int st = n % STAGES;
+      mbar_wait(&full[st], (n / STAGES) & 1);
+      const uint32_t so = st * STAGE;
+      wg_fence();
+#pragma unroll
+      for (int o = 0; o < kFJ * 4; o += 32) {          // k-steps of 8 j
+        wgmma_tf32<N>(acc, at(z_a, so + kFZ + o), at(w_b, so + o));  // lo hi
+        wgmma_tf32<N>(acc, at(z_a, so + o), at(w_b, so + WT + o));   // hi lo
+        wgmma_tf32<N>(acc, at(z_a, so + o), at(w_b, so + o));        // hi hi
+      }
+      wg_commit();
+      wg_wait<1>();                        // the stage before has been read
+      if (n > n0) mbar_arrive(&empty[(n - 1) % STAGES]);
+    }
+    wg_wait<0>();
+    fence_regs(acc);
+    mbar_arrive(&empty[(n1 - 1) % STAGES]);
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) {      // Kahan; acc keeps the compensation
+      const float u = tot[i] + acc[i];
+      acc[i] = acc[i] - (u - tot[i]);
+      tot[i] = u;
+    }
   }
 
 #pragma unroll
-  for (int b = 0; b < kNi; ++b)
+  for (int i = 0; i < N / 8; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const long long c = c0 + ca + (e >> 1) * 8;
-      const int k = k0 + b * 8 + 2 * t + (e & 1);
-      if (c >= N || k >= K) continue;
-      const float x = tot[b][e] + ncm[b][e];
+      const long long c = c0 + 64 * cw + 16 * ww + g + 8 * (e >> 1);
+      const int k = k0 + 8 * i + 2 * t + (e & 1);
+      if (c >= NC || k >= K) continue;
+      const float x = tot[4 * i + e] + acc[4 * i + e];
       if (part)
-        part[((long long)s * K + k) * N + c] = x;
+        part[((long long)s * K + k) * NC + c] = x;
       else
         out[((c / D) * K + k) * D + c % D] = x;
     }
@@ -550,55 +584,88 @@ __global__ void sum_splits_kernel(const float* __restrict__ part,
   out[i] = (float)acc;
 }
 
+template <int N, int STAGES>
+cudaError_t launch_layer(const float* xk, const float* x0, const float* wp,
+                         float* out, float* part, int B, int H, int M, int D,
+                         int K, int S, int cps, int n_stages, long long blocks,
+                         int n_ctiles, int n_ktiles, cudaStream_t st) {
+  constexpr int STAGE = 2 * kFZ + 2 * N * 128;
+  const int smem = STAGES * STAGE + M * kFCols * 4 + 2 * STAGES * 8;
+  cudaError_t err = cudaFuncSetAttribute(
+      cin_kernel<N, STAGES>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  cin_kernel<N, STAGES><<<(unsigned)blocks, kFThreads, smem, st>>>(
+      xk, x0, wp, out, S > 1 ? part : nullptr, B, H, M, D, K, n_ctiles,
+      n_ktiles, cps, n_stages);
+  return cudaGetLastError();
+}
+
+template <int N>
+cudaError_t run_layer(const float* xk, const float* x0, const float* w,
+                      float* out, float* wp, float* part, int B, int H,
+                      int M, int D, int K, int S, int cps, int n_stages,
+                      cudaStream_t st) {
+  constexpr int STAGE = 2 * kFZ + 2 * N * 128;
+  const int n_ktiles = (K + N - 1) / N;
+  const long long NC = (long long)B * D;
+  const long long n_ctiles = (NC + kFCols - 1) / kFCols;
+  const long long blocks = n_ctiles * n_ktiles * S;
+  const int deep = kFStagesMax * STAGE + M * kFCols * 4 +
+                   2 * kFStagesMax * 8;
+  if (blocks > 0x7fffffffLL || M > kFMaxFields ||
+      (n_stages > 0 && (wp == nullptr || (uintptr_t)wp % 16 != 0)))
+    return cudaErrorInvalidValue;
+  const long long n_wp = (long long)n_ktiles * n_stages * N * kFJ;
+  if (n_wp > 0) {
+    const long long wb = (n_wp + 255) / 256;
+    prep_w_kernel<N><<<(unsigned)(wb < 65536 ? wb : 65536), 256, 0, st>>>(
+        w, wp, K, H * M, n_stages, n_ktiles);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  cudaError_t err =
+      deep <= kMaxSmem
+          ? launch_layer<N, kFStagesMax>(xk, x0, wp, out, part, B, H, M, D, K,
+                                         S, cps, n_stages, blocks,
+                                         (int)n_ctiles, n_ktiles, st)
+          : launch_layer<N, kFStages>(xk, x0, wp, out, part, B, H, M, D, K,
+                                      S, cps, n_stages, blocks,
+                                      (int)n_ctiles, n_ktiles, st);
+  if (err != cudaSuccess || S == 1) return err;
+  const long long n_out = (long long)K * NC;
+  sum_parts_kernel<<<(unsigned)((n_out + 255) / 256), 256, 0, st>>>(
+      part, out, S, K, NC, D);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// x_k [B, H, D], x_0 [B, M, D], w [K, H, M], out [B, K, D], float32.  The
-// ceil(H * M / 32) chunks of j are split into S parts of cps chunks each,
-// (S - 1) * cps < chunks <= S * cps.  Scratch from the caller: wprep,
-// ceil(K / 40) * 40 * chunks * 64 floats, 16-byte aligned; and when S > 1
-// part, S * K * B * D floats (else null).
+// x_k [B, H, D], x_0 [B, M, D], w [K, H, M], out [B, K, D], float32, M <=
+// kFMaxFields.  The ceil(H * M / 32) stages of j are split into S parts of
+// cps stages each, (S - 1) * cps < stages <= S * cps.  Scratch from the
+// caller: wprep, ceil(K / N) * stages * 2 * N * 32 floats, 16-byte
+// aligned, N = 40 if K <= 40 else 104; and when S > 1 part, S * K * B * D
+// floats (else null).
 extern "C" int cin_layer(const float* xk, const float* x0, const float* w,
                          float* out, void* wprep, float* part, int B, int H,
                          int M, int D, int K, int S, int cps, void* stream) {
   if (B <= 0 || K <= 0 || D <= 0) return (int)cudaSuccess;
-  if (H < 0 || M <= 0 || (long long)H * M >= (1 << 22))
+  if (H < 0 || M <= 0 || M > kFMaxFields || (long long)H * M >= (1 << 30))
     return (int)cudaErrorInvalidValue;
-  const int n_chunks = (H * M + kJc - 1) / kJc;
-  if (S < 1 || cps < 1 || (long long)S * cps < n_chunks ||
-      (S > 1 && ((long long)(S - 1) * cps >= n_chunks || part == nullptr)))
+  const int n_stages = (H * M + kFJ - 1) / kFJ;
+  if (S < 1 || cps < 1 || (long long)S * cps < n_stages ||
+      (S > 1 && ((long long)(S - 1) * cps >= n_stages || part == nullptr)))
     return (int)cudaErrorInvalidValue;
-  // rows of x_k a chunk of kJc consecutive j can touch
-  const int nh = (kJc - 1) / M + 2 < kJc ? (kJc - 1) / M + 2 : kJc;
-  const size_t smem = ((size_t)(M + 2 * nh) * kXs + 2 * kWTile) *
-                         sizeof(float) + 2 * kJc * sizeof(int2);
-  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  const int n_ktiles = (K + kKt - 1) / kKt;
-  const long long N = (long long)B * D;
-  const long long n_ctiles = (N + kNc - 1) / kNc;
-  const long long blocks = n_ctiles * n_ktiles * S;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float4* wp = static_cast<float4*>(wprep);
-  const long long n_wp = (long long)n_ktiles * kKt * n_chunks * 16;
-  if (n_wp > 0) {
-    const long long wb = (n_wp + 255) / 256;
-    prep_w_kernel<<<(unsigned)(wb < 8192 ? wb : 8192), 256, 0, st>>>(
-        w, wp, K, H * M, n_ktiles * kKt, n_chunks);
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-  }
-  cudaError_t err = cudaFuncSetAttribute(
-      cin_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  cin_kernel<<<(unsigned)blocks, kThreads, smem, st>>>(
-      xk, x0, wp, out, S > 1 ? part : nullptr, B, H, M, D, K, (int)n_ctiles,
-      n_ktiles, cps, n_chunks, nh);
-  err = cudaGetLastError();
-  if (err != cudaSuccess || S == 1) return (int)err;
-  const long long n_out = (long long)K * N;
-  sum_parts_kernel<<<(unsigned)((n_out + 255) / 256), 256, 0, st>>>(
-      part, out, S, K, N, D);
-  return (int)cudaGetLastError();
+  float* wp = static_cast<float*>(wprep);
+  const cudaError_t err =
+      K <= kFRowsS
+          ? run_layer<kFRowsS>(xk, x0, w, out, wp, part, B, H, M, D, K, S,
+                               cps, n_stages, st)
+          : run_layer<kFRowsL>(xk, x0, w, out, wp, part, B, H, M, D, K, S,
+                               cps, n_stages, st);
+  return (int)err;
 }
 
 // g [B, K, D], x_k [B, H, D], x_0 [B, M, D] -> dw [K, H, M], float32: the

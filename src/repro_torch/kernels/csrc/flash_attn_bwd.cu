@@ -56,11 +56,9 @@
 //   bulk reduce-add in an order that varies from run to run (f32
 //   additions in L2); dK and dV are summed in registers, in a fixed order.
 
-#include <dlfcn.h>
 #include <math.h>
 #include <string.h>
 
-#include <cuda.h>   // CUtensorMap and its enums (types only: no libcuda link)
 #include <type_traits>
 
 #include "bf16_mma.cuh"
@@ -104,38 +102,6 @@ struct Cfg {
   static constexpr int SMEM = BAR_OFF + (1 + 2 * STAGES) * 8 + 1024;
 };
 
-// 8 values of a row from column c0, 0 past d; 16-byte loads when vec
-__device__ __forceinline__ void load8(const float* row, int c0, int d,
-                                      int vec, float (&x)[8]) {
-  if (vec && c0 + 8 <= d) {
-    const float4 a = __ldg(reinterpret_cast<const float4*>(row + c0));
-    const float4 b = __ldg(reinterpret_cast<const float4*>(row + c0 + 4));
-    x[0] = a.x; x[1] = a.y; x[2] = a.z; x[3] = a.w;
-    x[4] = b.x; x[5] = b.y; x[6] = b.z; x[7] = b.w;
-  } else {
-#pragma unroll
-    for (int e = 0; e < 8; ++e) x[e] = c0 + e < d ? __ldg(row + c0 + e) : 0.f;
-  }
-}
-__device__ __forceinline__ void load8(const bf16* row, int c0, int d,
-                                      int vec, float (&x)[8]) {
-  if (vec && c0 + 8 <= d) {
-    const uint4 u = __ldg(reinterpret_cast<const uint4*>(row + c0));
-    const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float2 f =
-          __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[e]));
-      x[2 * e] = f.x;
-      x[2 * e + 1] = f.y;
-    }
-  } else {
-#pragma unroll
-    for (int e = 0; e < 8; ++e)
-      x[e] = c0 + e < d ? __bfloat162float(row[c0 + e]) : 0.f;
-  }
-}
-
 // D[r] = sum_c dO[r, c] o[r, c], one warp a row; dqacc's row zeroed.
 // 16-byte loads when vec (d a multiple of 16 bytes, o and dO aligned).
 template <typename T>
@@ -169,46 +135,6 @@ __global__ void delta_kernel(const T* __restrict__ o,
   for (int c = 4 * lane; c < dmax; c += 128)
     *reinterpret_cast<float4*>(dqacc + row * dmax + c) =
         make_float4(0.f, 0.f, 0.f, 0.f);
-}
-
-// rows x DMAX of src (row stride d) into the 128-byte swizzled regions of
-// a tile (region r holds columns 64 r .. 64 r + 63 of every row), as bf16
-// hi and, when SPLIT, lo; the producer warpgroup's 128 threads (tid)
-template <int DMAX, bool SPLIT, typename T>
-__device__ __forceinline__ void fill_tile(uint8_t* hi, uint8_t* lo,
-                                          const T* src, int rows, int d,
-                                          int vec, int tid) {
-  constexpr int CH = DMAX / 8;             // 16-byte chunks a row
-  constexpr int NB = SPLIT ? 4 : 1;        // chunks a thread loads at once
-  for (int i0 = tid; i0 < rows * CH; i0 += 128 * NB) {
-    float x[NB][8];
-#pragma unroll
-    for (int b = 0; b < NB; ++b) {
-      const int i = i0 + 128 * b;
-      if (i < rows * CH)
-        load8(src + (long long)(i / CH) * d, (i % CH) * 8, d, vec, x[b]);
-    }
-#pragma unroll
-    for (int b = 0; b < NB; ++b) {
-      const int i = i0 + 128 * b;
-      if (i >= rows * CH) break;
-      const int r = i / CH;
-      const int ch = i % CH;
-      const uint32_t off = (ch / 8) * rows * 128 + sw128(r, ch % 8);
-      uint4 h, l;
-      if constexpr (SPLIT) {
-        split(x[b][0], x[b][1], h.x, l.x);
-        split(x[b][2], x[b][3], h.y, l.y);
-        split(x[b][4], x[b][5], h.z, l.z);
-        split(x[b][6], x[b][7], h.w, l.w);
-        *reinterpret_cast<uint4*>(lo + off) = l;
-      } else {
-        h = make_uint4(pack(x[b][0], x[b][1]), pack(x[b][2], x[b][3]),
-                       pack(x[b][4], x[b][5]), pack(x[b][6], x[b][7]));
-      }
-      *reinterpret_cast<uint4*>(hi + off) = h;
-    }
-  }
 }
 
 // S^T- or dP^T-shaped product, N = 64 queries: d (+)= A B
@@ -697,41 +623,6 @@ __global__ void dq_convert(const float* __restrict__ dqacc, T* __restrict__ dq,
              e + (cc & 1)] * scale);
   }
 }
-
-// cuTensorMapEncodeTiled from libcuda, which the process has loaded
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
-                                cuuint32_t, void*, const cuuint64_t*,
-                                const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave,
-                                CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* h = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (!h) h = dlopen("libcuda.so.1", RTLD_NOW);
-    if (h) fn = reinterpret_cast<EncodeTiled>(
-        dlsym(h, "cuTensorMapEncodeTiled"));
-  }
-  return fn;
-}
-
-// a [rows, d] bf16 tensor in boxes of 64 columns by box_rows, 128-byte
-// swizzled
-bool bf16_map(EncodeTiled fn, CUtensorMap* m, const void* base,
-              long long rows, int d, int box_rows) {
-  const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)d * 2};
-  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
-  const cuuint32_t unit[2] = {1, 1};
-  return fn(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
-            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 
 template <int DMAX, bool F32, bool TMA>
 cudaError_t run(const CUtensorMap (&maps)[4], const void* q, const void* k,

@@ -40,8 +40,8 @@ def test_gate_passes_on_the_clean_tree(tmp_path):
     ("f64", "dtype:float64")])
 def test_mutation_fails_gate(tmp_path, kind, rule):
     out = tmp_path / "contracts.json"
-    rc = check.main(["--no-ruff", "--no-astlint", "--mutate", kind,
-                     "--out", str(out)])
+    rc = check.main(["--device", "cpu", "--no-ruff", "--no-astlint",
+                     "--mutate", kind, "--out", str(out)])
     assert rc == 1
     doc = json.loads(out.read_text())
     assert doc["gate"] == "fail"
@@ -61,10 +61,20 @@ def test_gate_refuses_cuda_without_a_card(tmp_path, monkeypatch):
                     "--out", str(tmp_path / "c.json")])
 
 
+def test_gate_defaults_to_cuda(tmp_path, monkeypatch):
+    """Without ``--device`` the gate targets the card, as every entry
+    point of the port does: here, with no card, it raises."""
+    import torch
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        check.main(["--no-ruff", "--no-astlint",
+                    "--out", str(tmp_path / "c.json")])
+
+
 def test_route_filter(tmp_path):
     out = tmp_path / "c.json"
-    assert check.main(["--routes", "segment.*", "--no-ruff", "--no-astlint",
-                       "--out", str(out)]) == 0
+    assert check.main(["--device", "cpu", "--routes", "segment.*",
+                       "--no-ruff", "--no-astlint", "--out", str(out)]) == 0
     doc = json.loads(out.read_text())
     assert sorted(doc["routes"]) == ["segment.batched", "segment.cold",
                                      "segment.targeted", "segment.warm"]

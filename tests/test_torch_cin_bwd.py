@@ -1,8 +1,8 @@
 """Port parity for B5's backward: the plain backward
 ``ref.cin_layer_bwd_ref``, the permuted-weight identity the card uses
 for the input gradients (``dx_k = cin_layer(g, x_0, w^T)``, ``dx_0 =
-cin_layer(g, x_k, w')`` split over ranges of at most ``MAX_FIELDS`` = 191
-values of h), ``cin_weight_grad``'s plain version, and the autograd path
+cin_layer(g, x_k, w')`` split over ranges of at most ``MAX_FIELDS`` = 221
+values of h: one launch at H = 200), ``cin_weight_grad``'s plain version, and the autograd path
 of ``cin_layer`` (layer 1's x_k = x_0 included), each against
 ``jax.grad`` of the reference's ``repro/kernels/ref.py::cin_layer_ref``
 on the same numpy inputs.  Tolerance: the reference's CIN tolerance,
@@ -51,7 +51,7 @@ def test_plain_backward_vs_jax_grad(B, H, M, D, K):
 def test_permuted_weight_identity_and_split(B, H, M, D, K, monkeypatch):
     """The input gradients as the card takes them, through the forward
     with permuted weights (the plain forward here); dx_0 in
-    ceil(H / 191) calls of at most 191 values of h each."""
+    ceil(H / MAX_FIELDS) calls of at most MAX_FIELDS values of h each."""
     xk, x0, w, g = _inputs(B, H, M, D, K, seed=1)
     txk, tx0, tw, tg = map(torch.from_numpy, (xk, x0, w, g))
     calls = []
@@ -74,6 +74,29 @@ def test_permuted_weight_identity_and_split(B, H, M, D, K, monkeypatch):
     np.testing.assert_allclose(dx_0.numpy(), np.asarray(want[1]), **TOL)
     dw = cin.cin_weight_grad(tg, txk, tx0)
     np.testing.assert_allclose(dw.numpy(), np.asarray(want[2]), **TOL)
+
+
+def test_dx0_at_h200_is_one_launch(monkeypatch):
+    """An H-200 layer (CIN 200-200-200) takes dx_0 in one forward launch,
+    so its backward is 2 ``cin_layer`` launches and one
+    ``cin_weight_grad``; the sum still equals the plain backward's."""
+    B, H, M, D, K = 3, 200, 39, 10, 200
+    xk, x0, w, g = _inputs(B, H, M, D, K, seed=4)
+    txk, tx0, tw, tg = map(torch.from_numpy, (xk, x0, w, g))
+    calls = []
+    real = cin._forward
+
+    def counting(a, b, c):
+        calls.append(b.shape[1])
+        return real(a, b, c)
+    monkeypatch.setattr(cin, "_forward", counting)
+    dx_0 = cin.input_grad_x0(tg, txk, tw)
+    assert calls == [H] and H <= cin.MAX_FIELDS
+    assert cin.backward_launches(H, M) == {"cin_layer": 2,
+                                           "cin_weight_grad": 1}
+    want = ref.cin_layer_bwd_ref(txk.double(), tx0.double(), tw.double(),
+                                 tg.double())[1]
+    np.testing.assert_allclose(dx_0.numpy(), want.numpy(), **TOL)
 
 
 @pytest.mark.parametrize("B,H,M,D,K", SHAPES)

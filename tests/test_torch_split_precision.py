@@ -7,12 +7,13 @@ the card's tolerances against float64:
 - ``csrc/cin.cu`` (B5): 3xTF32.  Each operand is split into hi = tf32(x)
   and lo = tf32(x - hi) (TF32 keeps 10 stored mantissa bits: the low 13
   bits of a float32, rounded half away from zero as ``cvt.rna.tf32.f32``
-  does), each product is lo.hi + hi.lo + hi.hi, every 8 values of j are
-  summed into a fresh float32 fragment, and fragments are added into a
-  Kahan float32 pair; the S parts of a split reduction are summed in
-  float64.  At FULL's CIN layer-2 widths the emulation must stay within
-  the card's check of the kernel (3e-4 against float64, and 1e-4
-  absolute), and a bf16 hi/lo split must not (why the kernel takes TF32).
+  does), each product is lo.hi + hi.lo + hi.hi, added into a float32
+  accumulator k-step by k-step (8 values of j), which goes into a Kahan
+  float32 pair every ``FLUSH`` k-steps; the S parts of a split reduction
+  are summed in float64.  At FULL's CIN layer-2 widths the emulation must
+  stay within the card's check of the kernel (3e-4 against float64, and
+  1e-4 absolute), also at the lengths of j of the ``[train]`` input
+  gradients, and a bf16 hi/lo split must not (why the kernel takes TF32).
 - ``csrc/flash_attn.cu`` (B6) in float32: bf16 hi/lo splits of q, k, v
   and p with three products each, float32 scores and online-softmax state
   over key tiles of 64, within the card's float32 tolerance (2e-3) of
@@ -70,33 +71,54 @@ def _cin_inputs(B, H, M, D, K, seed=0):
             rng.normal(size=(K, H, M)).astype(np.float32))
 
 
-def cin_emulated(xk, x0, w, rnd=tf32, splits=1, chunk=cin.CHUNK):
-    """The kernel's arithmetic: out[b, k, d] from x_k, x_0, w (float32)."""
+def cin_emulated(xk, x0, w, rnd=tf32, splits=1, chunk=cin.CHUNK,
+                 flush=cin.FLUSH):
+    """The kernel's arithmetic: out[b, k, d] from x_k, x_0, w (float32).
+
+    j = h * M + m runs in stages of ``chunk`` values (zero-padded at its
+    end) split into S parts of ceil(stages / S) stages; within a part each
+    k-step of 8 values of j adds its three products (lo.hi, hi.lo, hi.hi,
+    each an exact 8-term sum) into a float32 accumulator, rounding after
+    each, and every ``flush`` k-steps (and at the end of the part) the
+    accumulator goes into a Kahan float32 pair and keeps the compensation;
+    the parts are added in float64."""
     B, H, D = xk.shape
     M = x0.shape[1]
     K = w.shape[0]
     z = (xk[:, :, None, :] * x0[:, None, :, :]).reshape(B, H * M, D)
+    z = z.permute(0, 2, 1).reshape(B * D, H * M)       # [c, j]
     wf = w.reshape(K, H * M)
-    zh, zl = (t.double() for t in split(z, rnd))
-    wh, wl = (t.double() for t in split(wf, rnd))
-    n_chunks = math.ceil(H * M / chunk)
-    cps = math.ceil(n_chunks / splits)
-    total = torch.zeros((B, K, D), dtype=torch.float64)
+    pad = -(H * M) % chunk
+    z = torch.cat([z, torch.zeros(B * D, pad)], 1)
+    wf = torch.cat([wf, torch.zeros(K, pad)], 1)
+    steps = z.shape[1] // 8
+
+    def prod(a, b):                    # [steps, B * D, K] float64
+        return torch.einsum("csj,ksj->sck",
+                            a.double().reshape(B * D, steps, 8),
+                            b.double().reshape(K, steps, 8)).numpy()
+    zh, zl = split(z, rnd)
+    wh, wl = split(wf, rnd)
+    terms = (prod(zl, wh), prod(zh, wl), prod(zh, wh))
+    per_stage = chunk // 8
+    n_stages = steps // per_stage
+    cps = math.ceil(n_stages / splits)
+    total = np.zeros((B * D, K))
+    f32 = np.float32
     for s in range(splits):
-        tot = torch.zeros((B, K, D), dtype=torch.float32)
-        ncm = torch.zeros_like(tot)
-        for j0 in range(s * cps * chunk, min((s + 1) * cps, n_chunks) * chunk,
-                        8):
-            sl = slice(j0, j0 + 8)
-            prods = (torch.einsum("kj,bjd->bkd", wh[:, sl], zl[:, sl])
-                     + torch.einsum("kj,bjd->bkd", wl[:, sl], zh[:, sl])
-                     + torch.einsum("kj,bjd->bkd", wh[:, sl], zh[:, sl]))
-            f = (prods + ncm.double()).float()     # the fresh fragment
-            u = tot + f
-            ncm = f - (u - tot)
-            tot = u
-        total += (tot + ncm).double()
-    return total.float()
+        lo, hi = s * cps * per_stage, min((s + 1) * cps, n_stages) * per_stage
+        tot = np.zeros((B * D, K), f32)
+        acc = np.zeros_like(tot)
+        for i in range(lo, hi):
+            for t in terms:
+                acc = (acc + t[i]).astype(f32)
+            if (i - lo + 1) % flush == 0 or i == hi - 1:
+                u = (tot + acc).astype(f32)
+                acc = (acc - (u - tot).astype(f32)).astype(f32)
+                tot = u
+        total += tot.astype(np.float64) + acc.astype(np.float64)
+    return torch.from_numpy(total.reshape(B, D, K).transpose(0, 2, 1)
+                            .astype(np.float32).copy())
 
 
 @pytest.mark.parametrize("splits", [1, 5])
@@ -128,6 +150,23 @@ def test_cin_bf16_split_would_miss_the_card_tolerance():
                       rnd=bf16).numpy()
     assert np.abs(bf - exact).max() > 1e-4
     assert np.abs(bf - exact).max() > 10 * np.abs(tf - exact).max()
+
+
+@pytest.mark.parametrize("splits", [1, 5])
+@pytest.mark.parametrize("H,M,K", [(200, 39, 200), (200, 200, 39)])
+def test_cin_forward_emulation_holds_the_card_tolerance_at_train_lengths(
+        H, M, K, splits):
+    """The forward's sums at the lengths of j the ``[train]`` batch gives
+    it: a layer and dx_k (H * M = 7,800, 244 stages) and dx_0 of an H-200
+    layer (200 x 200 = 40,000, 1,250 stages), in one part and in five,
+    within the card's 3e-4 of float64 (as chip_smoke holds the kernel)."""
+    xk, x0, w = _cin_inputs(4, H, M, 10, K, seed=7 + splits)
+    exact = np.einsum("khm,bhd,bmd->bkd", w.astype(np.float64),
+                      xk.astype(np.float64), x0.astype(np.float64))
+    got = cin_emulated(torch.from_numpy(xk), torch.from_numpy(x0),
+                       torch.from_numpy(w), splits=splits).numpy()
+    np.testing.assert_allclose(got, exact, rtol=3e-4, atol=3e-4)
+    assert np.abs(got - exact).max() <= 3e-4 * np.abs(exact).max()
 
 
 @pytest.mark.parametrize("x", [1.0, -1.0, 1.0 + 2.0 ** -11, 1.0 + 2.0 ** -12,
@@ -199,13 +238,14 @@ def test_flash_f32_split_bf16_emulation_holds_the_card_tolerance(causal):
 
 
 @pytest.mark.parametrize("B,H,M,D,K,splits", [
-    (512, 200, 39, 10, 200, 5),        # serve_p99, CIN layers 2 and 3
-    (512, 39, 39, 10, 200, 5),         # serve_p99, CIN layer 1
+    (512, 200, 39, 10, 200, 3),        # serve_p99, CIN layers 2 and 3
+    (512, 39, 39, 10, 200, 3),         # serve_p99, CIN layer 1
     (262144, 200, 39, 10, 200, 1),     # serve_bulk: tiles fill the card
     (4096, 200, 39, 10, 200, 1),
-    (1, 200, 39, 10, 200, 25),
+    (1, 200, 39, 10, 200, 61),
     (37, 7, 5, 3, 65, 2),
     (3, 2, 1, 1, 1, 1),
+    (512, 200, 200, 10, 39, 13),       # dx_0 of an H-200 layer: N = 40
 ])
 def test_cin_plan(B, H, M, D, K, splits):
     p = cin.plan(B, H, M, D, K)
@@ -213,8 +253,10 @@ def test_cin_plan(B, H, M, D, K, splits):
     assert p.splits == splits
     assert (p.splits - 1) * p.chunks_per_split < n_chunks
     assert n_chunks <= p.splits * p.chunks_per_split
-    assert p.w_prep_shape == (math.ceil(K / cin.ROWS) * cin.ROWS,
-                              n_chunks * 2 * cin.CHUNK)
+    rows = cin.ROWS_SMALL if K <= cin.ROWS_SMALL else cin.ROWS
+    assert cin.rows(K) == rows
+    assert p.w_prep_shape == (math.ceil(K / rows), n_chunks,
+                              2 * rows * cin.CHUNK)
     assert p.partial_shape == ((splits, K, B * D) if splits > 1 else None)
 
 
@@ -225,7 +267,7 @@ def test_cin_plan_fills_waves_without_idle_parts(B):
     H, M, D, K, sms = 200, 39, 10, 200, cin.SMS
     p = cin.plan(B, H, M, D, K, sms)
     n_chunks = math.ceil(H * M / cin.CHUNK)
-    tiles = math.ceil(B * D / cin.COLS) * math.ceil(K / cin.ROWS)
+    tiles = math.ceil(B * D / cin.COLS) * math.ceil(K / cin.rows(K))
 
     def cost(s):
         return math.ceil(tiles * s / sms) * math.ceil(n_chunks / s)
@@ -248,12 +290,21 @@ def _constexprs(source: str) -> dict[str, int]:
 
 
 def test_cin_wrapper_constants_match_the_kernel():
+    """The forward's tiles, flush period and field limit are the kernel's:
+    MAX_FIELDS columns of x_0 (512 bytes each) fit beside two stages at
+    N = 104 (Z^T and W^T, hi and lo) and their barriers, one more does
+    not."""
     c = _constexprs((CSRC / "cin.cu").read_text())
-    assert (cin.COLS, cin.ROWS, cin.CHUNK) == (c["kNc"], c["kKt"], c["kJc"])
+    assert (cin.COLS, cin.ROWS, cin.ROWS_SMALL, cin.CHUNK) == (
+        c["kFCols"], c["kFRowsL"], c["kFRowsS"], c["kFJ"])
+    assert c["kFFlush"] * c["kFJ"] // 8 == cin.FLUSH
+    assert c["kFMaxFields"] == cin.MAX_FIELDS >= 200
 
-    def smem(m):                    # x_0, two stages of 2 x_k rows, W, j table
-        return (m + 4) * c["kXs"] * 4 + 2 * c["kWTile"] * 4 + 2 * c["kJc"] * 8
+    def smem(m, stages=c["kFStages"]):
+        stage = 2 * (c["kFCols"] + c["kFRowsL"]) * 128
+        return stages * stage + m * c["kFCols"] * 4 + 2 * stages * 8
     assert smem(cin.MAX_FIELDS) <= c["kMaxSmem"] < smem(cin.MAX_FIELDS + 1)
+    assert c["kFStageL"] == 2 * (c["kFCols"] + c["kFRowsL"]) * 128
 
 
 def cin_wgrad_emulated(g, xk, x0, splits=1, cols=cin.WG_COLS,
@@ -399,6 +450,11 @@ def test_flash_bwd_wrapper_constants_match_the_kernel():
 
 
 def test_flash_wrapper_block_covers_the_kernel_tiles():
+    """The sequence lengths' BLOCK is a whole number of the bf16 kernel's
+    query tiles (two warpgroups of 64 rows) and key tiles, and of the f32
+    kernel's key tiles and query rows (8 warps of 16)."""
     c = _constexprs((CSRC / "flash_attn.cu").read_text())
+    assert c["kBq"] == c["kBn"] == 128       # causal: one diagonal tile
+    assert flash_attn.BLOCK % c["kBq"] == 0 and flash_attn.BLOCK % c["kBn"] == 0
     assert flash_attn.BLOCK % c["kBk"] == 0
-    assert flash_attn.BLOCK % (16 * 8) == 0       # 8 warps of 16 rows (f32)
+    assert flash_attn.BLOCK % (16 * c["kWarps"]) == 0

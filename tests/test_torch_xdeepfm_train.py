@@ -2,7 +2,7 @@
 the gradient of every parameter leaf against ``jax.value_and_grad`` of
 the reference's ``loss_fn`` on the same weights (carried across by
 ``convert``) and batch, at the SMOKE config and at FULL's widths (CIN
-200-200-200: layer 2 and 3's dx_0 split over 191 fields) with its fields
+200-200-200: layer 2 and 3's dx_0 in one launch each) with its fields
 cut to 1,000 rows; and the reference's
 ``test_training_reduces_loss`` on the port (60 SGD steps, lr 0.1, SMOKE,
 CPU).  Tolerance: the reference's xDeepFM tolerance, rtol = atol = 1e-4
